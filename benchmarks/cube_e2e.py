@@ -8,8 +8,8 @@ in-process, and reports total wall clock, channels/s, and the host share
 from the per-wave timing accounting.
 
 Usage: python benchmarks/cube_e2e.py [pixels] [num_channels] [num_times]
-Defaults: on an accelerator 4096 px, 16 channels, 512 dumps x 64 ants
-(~1M vis/channel); on CPU a small smoke configuration.
+Defaults: 4096 px, 16 channels, 512 dumps x 64 antennas (~1M
+visibilities/channel).  Runs only on an NVIDIA GPU.
 """
 
 import logging
@@ -23,14 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    jax.config.update("jax_platforms", "cpu")
-
-_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+from bench import device_info  # noqa: E402
+from katsdpimager_tpu.compile_cache import enable_compilation_cache  # noqa: E402
 
 
 class _WaveTimes(logging.Handler):
@@ -56,21 +50,20 @@ class _WaveTimes(logging.Handler):
 
 
 def main():
-    on_accel = jax.devices()[0].platform != "cpu"
-    pixels = int(sys.argv[1]) if len(sys.argv) > 1 else (
-        4096 if on_accel else 256)
-    channels = int(sys.argv[2]) if len(sys.argv) > 2 else (
-        16 if on_accel else 2)
-    times = int(sys.argv[3]) if len(sys.argv) > 3 else (
-        512 if on_accel else 24)
-    ants = 64 if on_accel else 12
+    enable_compilation_cache()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("cube_e2e: needs an NVIDIA GPU")
+    pixels = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
+    channels = int(sys.argv[2]) if len(sys.argv) > 2 else 16
+    times = int(sys.argv[3]) if len(sys.argv) > 3 else 512
+    ants = 64
 
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s:%(name)s: %(message)s")
     from katsdpimager_tpu import simulate
 
     work = tempfile.mkdtemp(prefix="cube_e2e_")
-    ds = os.path.join(work, "sim.h5")
+    ds = os.path.join(work, "sim.vis")
     t0 = time.monotonic()
     simulate.make_sim_dataset(ds, num_antennas=ants, num_times=times,
                               num_channels=channels, max_radius=4000.0)
@@ -86,8 +79,7 @@ def main():
 
     out = os.path.join(work, "out")
     argv = [ds, out, "--cube", "--pixels", str(pixels),
-            "--kernel-width", "60" if on_accel else "12",
-            "--minor", "1000" if on_accel else "100", "--major", "2",
+            "--kernel-width", "60", "--minor", "1000", "--major", "2",
             "--loop-gain", "0.25",
             # Production-like W geometry (BASELINE: 4 slices): the sim's
             # 4 km baselines at the default --w-step 1.0 would demand
@@ -100,6 +92,7 @@ def main():
     total = time.monotonic() - t0
 
     host_share = handler.blocked / total if total else 0.0
+    print(device_info())
     print(f"\nEND-TO-END: {total:.1f}s for {channels} channels "
           f"-> {channels / total:.3f} channels/s "
           f"({total / channels:.2f} s/channel incl. host+write)")

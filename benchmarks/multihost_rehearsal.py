@@ -1,10 +1,11 @@
-"""Multi-process ``jax.distributed`` rehearsal of the chan-on-DCN mesh.
+"""Multi-process ``jax.distributed`` rehearsal of a multi-host mesh, on
+the CPU only.
 
-The production multi-host layout (SURVEY §6 / doc/PERFORMANCE.md) puts the
-``chan`` mesh axis across hosts — zero steady-state communication — and
-keeps the psum-heavy ``vis`` axis on ICI within a host.  Real multi-host
-TPU hardware is not available in this build, so this script rehearses the
-full multi-controller code path on CPU: ``jax.distributed.initialize``,
+A multi-host layout puts the ``chan`` mesh axis across hosts — zero
+steady-state communication — and keeps the psum-heavy ``vis`` axis within
+a host.  This script rehearses the full multi-controller code path with
+several processes on the CPU (each process on the card would reserve
+most of its memory, so it never runs there): ``jax.distributed.initialize``,
 per-process channel data assembled into globally-sharded arrays with
 ``jax.make_array_from_process_local_data``, one shard_mapped imaging step
 over the global ("chan", "vis") mesh, and per-process output-shard

@@ -1,11 +1,12 @@
-"""katsdpimager_tpu: a TPU-native spectral-line radio interferometric imager.
+"""katsdpimager_tpu: a spectral-line radio interferometric imager in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ska-sa/katsdpimager (GPU/CUDA): visibility preprocessing and compression,
 convolutional gridding with combined anti-aliasing + W-projection kernels
 inside a W-stacking loop, FFT imaging, Cotton-Schwab CLEAN deconvolution,
 restoring-beam fitting/convolution, primary-beam correction and FITS output —
-independently per frequency channel, sharded over TPU meshes.
+independently per frequency channel, sharded over device meshes.  It runs
+on an NVIDIA GPU (and, for tests, on the CPU).
 
 Design notes (vs the reference architecture):
 
@@ -14,9 +15,9 @@ Design notes (vs the reference architecture):
   pytrees; XLA is the runtime and the autotuner.
 - The reference's atomic scatter-add gridder (grid.mako, Romein-style) is
   replaced by a deterministic formulation: visibilities are pre-bucketed by
-  (channel, w_slice), padded to static shapes, and gridded either by an XLA
-  tap-loop scatter-add or a Pallas bucket-tile kernel with VMEM-resident
-  accumulators.  Determinism makes results bitwise reproducible.
+  (channel, w_slice), padded to static shapes, and gridded by dense
+  matrix products over tile-aligned chunks (``ops/mxu_gridder.py``), with
+  an XLA tap-loop scatter-add as the reference formulation.
 - The reference's per-minor-cycle GPU->CPU round trip in CLEAN (clean.py:10)
   is removed: minor cycles run entirely on device in a lax.while_loop.
 - Multi-device scaling (absent in the reference) is native: frequency

@@ -5,7 +5,7 @@ primary beam -> restore -> statistics).
 Structure parity with the reference ``frontend.py``: the same flag surface
 (``add_options``), the same ``Writer`` abstract class and statistics
 contract (frontend.py:383-461), and the same per-channel processing order
-(frontend.py:464-658).  Differences are TPU-architecture-driven: the imaging
+(frontend.py:464-658).  Differences follow from JAX's design: the imaging
 state is device-resident jnp arrays; CLEAN minor cycles run in on-device
 batches; visibility chunks flow through static-shape padded blocks.
 """
@@ -35,35 +35,46 @@ logger = logging.getLogger(__name__)
 # ---------------------------------------------------------------------------
 # Preprocessing
 
+def preprocess_engine(requested: str = "auto") -> str:
+    """The preprocess engine a run uses, logged with its reason.
+
+    ``auto`` takes the C++ core on an accelerator (the device stays free
+    for imaging) and the jitted JAX path on the CPU backend."""
+    if requested != "auto":
+        logger.info("Preprocess engine: %s (requested)", requested)
+        return requested
+    import jax
+
+    from . import native
+
+    if jax.devices()[0].platform == "cpu":
+        logger.info("Preprocess engine: jax (CPU backend)")
+        return "jax"
+    reason = native.unavailable_reason()
+    if reason is None:
+        logger.info("Preprocess engine: native")
+        return "native"
+    logger.warning("Preprocess engine: jax, because the native library "
+                   "does not build or load: %s", reason)
+    return "jax"
+
+
 @profile_function()
 def preprocess_visibilities(dataset, args, start_channel, stop_channel,
                             image_ps, grid_ps, polarization_matrices):
     """Stream the dataset through the collector, overlapping load with
     preprocess via a single worker thread (reference frontend.py:30-81)."""
     mueller_stokes, mueller_circular = polarization_matrices
-    engine = getattr(args, "preprocess", "auto")
-    if engine == "auto":
-        try:
-            from . import native
-
-            if not native.available():
-                raise RuntimeError("native core unavailable")
-            import jax as _jax
-
-            engine = ("native"
-                      if _jax.devices()[0].platform not in ("cpu",)
-                      else "jax")
-        except Exception:
-            engine = "jax"
+    engine = preprocess_engine(getattr(args, "preprocess", "auto"))
     if args.tmp_file:
-        import tempfile, os, atexit
+        import atexit
+        import shutil
+        import tempfile
 
-        handle, filename = tempfile.mkstemp(".h5")
-        os.close(handle)
-        atexit.register(lambda: os.path.exists(filename) and os.remove(filename))
-        collector = preprocess.VisibilityCollectorHDF5(
-            filename, image_ps, grid_ps, args.vis_block,
-            max_cache_size=args.max_cache_size, engine=engine)
+        dirname = tempfile.mkdtemp(prefix="katsdpimager-spill-")
+        atexit.register(shutil.rmtree, dirname, ignore_errors=True)
+        collector = preprocess.VisibilityCollectorSpill(
+            dirname, image_ps, grid_ps, args.vis_block, engine=engine)
     else:
         collector = preprocess.VisibilityCollectorMem(
             image_ps, grid_ps, args.vis_block, engine=engine)
@@ -306,8 +317,6 @@ def add_options(parser):
     group.add_argument("--no-tmp-file", dest="tmp_file", action="store_false",
                        default=True,
                        help="Keep preprocessed visibilities in memory")
-    group.add_argument("--max-cache-size", type=int, default=None,
-                       help="Limit HDF5 chunk-cache bytes for preprocessing")
     group.add_argument("--preprocess", choices=["auto", "jax", "native"],
                        default="auto",
                        help="Preprocessing compute engine: the C++/OpenMP "

@@ -87,7 +87,7 @@ class FileWriter(frontend.Writer):
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="imager-tpu",
-        description="TPU-native spectral-line imager")
+        description="Spectral-line imager on JAX (GPU or CPU)")
     parser.add_argument("input_file", help="Input dataset (.h5 / .ms)")
     parser.add_argument("output_file",
                         help="Output FITS file (%%c = channel number)")
@@ -126,7 +126,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv, namespace=arguments.SmartNamespace())
     setup_logging(args.log_level)
 
-    from .xfer import enable_compilation_cache
+    from .compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -139,9 +139,6 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
     if args.precision == "double":
         jax.config.update("jax_enable_x64", True)
-        if not args.host and jax.devices()[0].platform == "tpu":
-            logger.warning("double precision on TPU is emulated and slow; "
-                           "consider --host for the f64 oracle path")
 
     if args.subtract and args.subtract != "auto":
         from . import sky_model

@@ -21,7 +21,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from . import parameters, xfer
+from . import parameters
 from .ops import beam as beam_ops
 from .ops import clean as clean_ops
 from .ops import fourier, gridder, mxu_gridder, predict, wkernel
@@ -73,7 +73,7 @@ class Imaging:
         self._cdtype = cdtype
 
         # Per-channel constants, generated on host once and uploaded.
-        self.kernel = xfer.device_complex(
+        self.kernel = jnp.asarray(
             wkernel.make_convolution_kernel(image_p, grid_p))
         beta = wkernel.default_beta(grid_p.fixed.antialias_width)
         self.taper1d = jnp.asarray(
@@ -84,7 +84,7 @@ class Imaging:
             image_p, grid_p)
 
         # State buffers
-        self.grid = xfer.device_zeros((P, N, N), cdtype)
+        self.grid = jnp.zeros((P, N, N), cdtype)
         self.dirty = jnp.zeros((P, N, N), rdtype)
         self.model = jnp.zeros((P, N, N), rdtype)
         self.psf = jnp.zeros((P, N, N), rdtype)
@@ -100,7 +100,7 @@ class Imaging:
         self._model_lmn: Optional[jnp.ndarray] = None
         self._model_flux: Optional[jnp.ndarray] = None
 
-        # MXU gridding: window sizes scale down for small images; chunk
+        # Matmul gridding: window sizes scale down for small images; chunk
         # plans are cached per w_slice (coordinates are fixed across major
         # cycles, only vis payloads change).
         r = min(64, max(8, N // 8))
@@ -114,7 +114,7 @@ class Imaging:
     # clearing
 
     def clear_grid(self):
-        self.grid = xfer.device_zeros(self.grid.shape, self.grid.dtype)
+        self.grid = jnp.zeros_like(self.grid)
 
     def clear_dirty(self):
         self.dirty = jnp.zeros_like(self.dirty)
@@ -153,13 +153,13 @@ class Imaging:
     def grid_chunk(self, chunk, vis: np.ndarray):
         """Grid (pre-weighted) visibilities with the scatter gridder;
         ``vis`` is (n, P) complex or a real array (for PSF gridding of the
-        weights).  Prefer :meth:`grid_slice` (MXU path)."""
+        weights).  Prefer :meth:`grid_slice` (matmul path)."""
         uv, sub_uv, w_plane = self._padded_chunk(chunk)
         n = uv.shape[0]
         vis = np.asarray(vis).astype(np.complex64)
         self.grid = gridder.grid_vis(
             self.grid, self.kernel, self.weights.grid, uv, sub_uv, w_plane,
-            xfer.device_complex(_pad_to(vis, n)), pixels=self.pixels)
+            jnp.asarray(_pad_to(vis, n)), pixels=self.pixels)
 
     @staticmethod
     def _plan_key(chunk, w_slice: int, block: int):
@@ -193,15 +193,12 @@ class Imaging:
 
     def grid_slice(self, chunk, vis, w_slice: int, block: int = 0):
         """Grid a (channel, w_slice) visibility set (or one streamed block
-        of it) via the MXU dense-matmul gridder.  ``vis`` may be numpy or
+        of it) via the dense-matmul gridder.  ``vis`` may be numpy or
         device-resident."""
         host_plan, plan = self._slice_plan(chunk, w_slice, block)
         if plan.uv.shape[0] == 0:
             return
-        if not isinstance(vis, jnp.ndarray):
-            vis = xfer.device_complex(np.asarray(vis))
-        else:
-            vis = vis.astype(jnp.complex64)
+        vis = jnp.asarray(vis, jnp.complex64)
         vis_chunked = self._mxu.chunk_vis(plan, vis)
         key = self._plan_key(chunk, w_slice, block)
         dw = self._dw_cache.get(key)
@@ -221,8 +218,7 @@ class Imaging:
         """Subtract degridded model visibilities for a slice (or one
         streamed block); the result stays on device."""
         _host_plan, plan = self._slice_plan(chunk, w_slice, block)
-        if not isinstance(vis, jnp.ndarray):
-            vis = xfer.device_complex(np.asarray(vis))
+        vis = jnp.asarray(vis)
         vis_chunked = self._mxu.chunk_vis(plan, vis)
         out_chunked = self._mxu.degrid(model_grid, self.kernel, plan,
                                        vis_chunked)
@@ -235,12 +231,8 @@ class Imaging:
             return vis
         uv, sub_uv, w_plane = self._padded_chunk(chunk)
         n = uv.shape[0]
-        if isinstance(vis, jnp.ndarray):
-            vis_j = xfer.device_pad_rows(vis.astype(jnp.complex64),
-                                         n - vis.shape[0])
-        else:
-            vis_j = xfer.device_complex(
-                _pad_to(np.asarray(vis).astype(np.complex64), n))
+        vis_j = jnp.asarray(vis, jnp.complex64)
+        vis_j = jnp.pad(vis_j, ((0, n - vis_j.shape[0]), (0, 0)))
         weights_j = jnp.asarray(
             _pad_to(np.asarray(chunk.weights).astype(np.float32), n))
         out = predict.predict_subtract(
@@ -307,24 +299,17 @@ class Imaging:
     def model_predict(self, chunk, vis, w_slice: int):
         if self._model_lmn.shape[0] == 0:
             return vis
-        # Default: the blocked MXU DFT (predict_subtract) — measured
-        # 79 Mvis/s at 1M vis x 256 sources on v5e
-        # (benchmarks/predict_tpu.py round 4).  The trig-free exact path
-        # is phase-exact but its (block, S) root-of-unity table gathers
-        # run ~300x slower on the chip (0.27 Mvis/s), so it is an
-        # opt-in accuracy tool (KTPU_PREDICT_EXACT=1); the two agree to
-        # f32 rounding.
+        # Default: the blocked matmul DFT (predict_subtract).  The
+        # trig-free exact path is phase-exact but gathers a (block, S)
+        # root-of-unity table; it is an opt-in accuracy tool
+        # (KTPU_PREDICT_EXACT=1), and the two agree to f32 rounding.
         if os.environ.get("KTPU_PREDICT_EXACT", "0") != "1":
             return self.predict_chunk(chunk, vis, w_slice,
                                       self._model_lmn, self._model_flux)
         uv, sub_uv, w_plane = self._padded_chunk(chunk)
         n = uv.shape[0]
-        if isinstance(vis, jnp.ndarray):
-            vis_j = xfer.device_pad_rows(vis.astype(jnp.complex64),
-                                         n - vis.shape[0])
-        else:
-            vis_j = xfer.device_complex(
-                _pad_to(np.asarray(vis).astype(np.complex64), n))
+        vis_j = jnp.asarray(vis, jnp.complex64)
+        vis_j = jnp.pad(vis_j, ((0, n - vis_j.shape[0]), (0, 0)))
         weights_j = jnp.asarray(
             _pad_to(np.asarray(chunk.weights).astype(np.float32), n))
         out = predict.predict_subtract_exact(
@@ -432,4 +417,4 @@ class Imaging:
     def get_buffer(self, name: str) -> np.ndarray:
         if name == "weights_grid":
             return np.asarray(self.weights.grid)
-        return xfer.fetch(getattr(self, name))
+        return np.asarray(getattr(self, name))

@@ -10,10 +10,10 @@ _LOADERS = []
 
 def _registry():
     if not _LOADERS:
-        from . import loader_hdf5, loader_ms, loader_katdal
+        from . import loader_hdf5, loader_katdal, loader_ms, loader_npy
 
-        _LOADERS.extend([loader_hdf5.LoaderHDF5, loader_ms.LoaderMS,
-                         loader_katdal.LoaderKatdal])
+        _LOADERS.extend([loader_npy.LoaderNumpy, loader_hdf5.LoaderHDF5,
+                         loader_ms.LoaderMS, loader_katdal.LoaderKatdal])
     return _LOADERS
 
 

@@ -27,7 +27,7 @@ def make_metadata(dataset, image_parameters, channels: List[int],
             "ReductionName": product_type,
         },
         "CaptureBlockId": getattr(dataset, "capture_block_id", lambda: None)(),
-        "Description": f"TPU spectral-line image ({len(channels)} channels)",
+        "Description": f"Spectral-line image ({len(channels)} channels)",
         "ProposalId": None,
         "Observer": None,
         "StartTime": format_timestamp(),

@@ -1,22 +1,33 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-The shared library is built on demand with g++ (OpenMP, -O3) and cached
-next to the sources; no pybind11 or build-system dependency.
+The shared library is built on demand with g++ (OpenMP, -O3,
+``-march=native``) from the committed ``preprocess.cpp`` alone; no
+pybind11 or build-system dependency.  The library's file name carries a
+hash of the source, the compiler command and the host CPU's model and
+feature flags (:func:`build_key`), under ``<checkout>/build/native``, so
+a library built from other source or for another CPU is never loaded:
+the first use on a new host builds its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_HERE, "libktpu_native.so")
 _SRC = os.path.join(_HERE, "preprocess.cpp")
+#: Build directory (listed in .gitignore).
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                         "native")
+_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+          "-std=c++17")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -33,12 +44,56 @@ class ChannelConfigStruct(ctypes.Structure):
     ]
 
 
-def _build() -> None:
-    cmd = [
-        "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-        "-std=c++17", _SRC, "-o", _LIB_PATH,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
+def _cpu_signature(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host CPU's model name and feature flags (what ``-march=native``
+    compiles for)."""
+    keep = []
+    try:
+        with open(cpuinfo) as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    keep.append(line.strip())
+                if len(keep) >= 2 and not line.strip():
+                    break   # the first processor's block is enough
+    except OSError:
+        pass
+    return "\n".join(keep)
+
+
+def build_key(src: str = _SRC, cpu: Optional[str] = None) -> str:
+    """Hash of the source, the compiler command and the host CPU."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(("g++",) + _FLAGS).encode())
+    h.update((_cpu_signature() if cpu is None else cpu).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(key: Optional[str] = None) -> str:
+    """Where the library for this source and host lives."""
+    return os.path.join(BUILD_DIR,
+                        f"libktpu_native-{key or build_key()}.so")
+
+
+def build(path: Optional[str] = None) -> str:
+    """Compile ``preprocess.cpp`` to ``path`` (default
+    :func:`library_path`) unless it exists; returns the path."""
+    path = path or library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True,
+                       capture_output=True)
+        os.replace(tmp, path)   # atomic: a reader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 def load() -> ctypes.CDLL:
@@ -47,10 +102,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)):
-            _build()
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(build())
         lib.ktpu_preprocess_channel.restype = ctypes.c_int64
         lib.ktpu_preprocess_channel.argtypes = [
             ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
@@ -100,11 +152,18 @@ def load() -> ctypes.CDLL:
 
 
 def available() -> bool:
+    """Whether the library builds and loads on this host."""
+    return unavailable_reason() is None
+
+
+def unavailable_reason() -> Optional[str]:
+    """None when the library loads, else why it does not."""
     try:
         load()
-        return True
-    except Exception:
-        return False
+        return None
+    except (OSError, subprocess.CalledProcessError) as exc:
+        detail = getattr(exc, "stderr", b"") or b""
+        return f"{type(exc).__name__}: {exc} {detail.decode(errors='replace')[-300:]}".strip()
 
 
 def _fptr(arr):

@@ -1,1 +1,1 @@
-"""TPU-native imaging operators (JAX/XLA/Pallas)."""
+"""Imaging operators (JAX/XLA)."""

@@ -92,7 +92,7 @@ def _order_stats_bits(bits, k1, k2):
     so the exact order statistic is found by a 31-step MSB-to-LSB binary
     search over bit prefixes, each step one rank count over the data —
     the reference's GPU median algorithm (clean.py:295-353), and ~10x
-    faster than a sort-based median for large images on TPU."""
+    faster than a sort-based median for large images."""
     def body(i, prefixes):
         b = 30 - i
         p1, p2 = prefixes

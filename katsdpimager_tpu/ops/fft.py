@@ -1,13 +1,11 @@
-"""TPU-native FFT: Bailey four-step decomposition onto the MXU.
+"""Matmul FFT: Bailey four-step decomposition into dense matmuls.
 
-XLA's TPU FFT custom call is memory-bound and measured at ~31 GiB/s
-effective on a 4k complex64 2-D transform — the second-largest term in
-the per-channel imaging step (doc/PERFORMANCE.md).  A length-N DFT with
-N = N1*N2 factors into N2-point DFTs, a twiddle multiply, and N1-point
-DFTs (Bailey 1990), turning the transform into two dense matmuls of the
-small DFT matrices against the reshaped signal — exactly the MXU's
-shape.  The reference relies on cuFFT (`/root/reference/katsdpimager/
-fft.py`); this is its TPU-first replacement.
+A length-N DFT with N = N1*N2 factors into N2-point DFTs, a twiddle
+multiply, and N1-point DFTs (Bailey 1990), turning the transform into two
+dense matmuls of the small DFT matrices against the reshaped signal.  The
+reference relies on cuFFT (`/root/reference/katsdpimager/fft.py`), which
+XLA calls on the GPU; this formulation is an alternative kept off the
+default path (``KTPU_FFT=mxu``) until it is compared on the card.
 
 Derivation (sign s = -1 forward, +1 inverse): with n = n2*N1 + n1 and
 k = k1*N2 + k2,
@@ -42,7 +40,7 @@ __all__ = ["fft", "ifft", "fft2", "ifft2", "use_mxu_fft"]
 
 
 def _split(n: int):
-    """Pick N1*N2 = n with both factors MXU-friendly (<= 128), N1 >= N2."""
+    """Pick N1*N2 = n with both factors at most 128, N1 >= N2."""
     if n & (n - 1) or n < 4:
         return None
     n1 = 1 << ((n.bit_length() - 1 + 1) // 2)   # ceil half of the log
@@ -67,7 +65,7 @@ def _dft_mats(n: int, sign: int, inverse_norm: bool):
 
 
 def _four_step_last(x, sign: int, inverse_norm: bool, precision):
-    """Length-N transform along the last axis via two MXU matmuls."""
+    """Length-N transform along the last axis via two matmuls."""
     n = x.shape[-1]
     n1, n2 = _split(n)
     w1, w2, tw = _dft_mats(n, sign, inverse_norm)
@@ -115,16 +113,8 @@ def ifft2(x, precision=jax.lax.Precision.HIGHEST):
 
 
 def use_mxu_fft() -> bool:
-    """Route the imaging FFTs through the MXU four-step implementation.
-
-    Default OFF everywhere: the round-4 on-chip A/B
-    (benchmarks/slicecost_tpu.py, v5e) measured the full grid_to_image at
-    7.64 ms (XLA FFT) vs 9.89 ms (MXU four-step) at 4k and 26.69 vs
-    31.94 ms at 8k — the raw transforms tie, but the matmul FFT blocks
-    XLA from fusing the taper/n/W-phase correction chain into the FFT
-    neighbourhood, costing extra HBM passes.  Override with
-    KTPU_FFT=mxu|xla.
-    """
+    """Route the imaging FFTs through the four-step matmul FFT
+    (``KTPU_FFT=mxu``; off by default, where XLA's FFT runs)."""
     return os.environ.get("KTPU_FFT", "").lower() == "mxu"
 
 

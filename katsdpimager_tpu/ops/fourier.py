@@ -25,15 +25,13 @@ The fftshifts are eliminated algebraically: for even N a half-period
 shift on either side of a DFT is a Nyquist modulation, so both the input
 ifftshift and the output fftshift fold into (-1)^(x+y) checkerboards that
 fuse into the elementwise chains (zero memory passes) — see
-``_checkerboard``.  On TPU the whole transform+corrections pipeline
-routes to the fused Pallas four-step FFT (:mod:`.pallas_fft`, the
-round-5 measured default — see :func:`_use_pallas_fft`); the XLA FFT
-custom call remains the CPU path (KTPU_FFT=xla|mxu|pallas overrides).
+``_checkerboard``.  The transform itself is XLA's FFT (cuFFT on the GPU,
+the reference's own choice); ``KTPU_FFT=mxu`` selects the four-step
+matmul FFT of :mod:`.fft` instead.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -42,40 +40,23 @@ import jax.numpy as jnp
 from . import fft as mfft
 
 
-def _use_pallas_fft(pixels: int, *dtypes) -> bool:
-    """Route the grid<->image transforms through the fused Pallas
-    four-step kernels (:mod:`.pallas_fft`): FFT + corrections in two
-    kernel launches and one relayout.  The TPU default since the round-5
-    on-chip A/B (g2i 6.20 vs 7.44 ms at 4k, 18.53 vs 27.01 ms at 8k;
-    i2g 6.14/17.83 vs 7.16/24.78; identical checksums; whole-bench
-    24.4 -> 26.9 Mvis/s) — KTPU_FFT=xla|mxu opts out.  f32/c64 only
-    (--precision double keeps the XLA path, as the fused kernels are
-    f32 MXU code)."""
-    from . import pallas_fft
-
-    env = os.environ.get("KTPU_FFT", "").lower()
-    want = (env == "pallas" if env
-            else jax.default_backend() == "tpu")
-    return (want
-            and pixels >= 256
-            and pallas_fft._split(pixels) is not None
-            and pixels % pallas_fft._default_cw(pixels) == 0
-            and all(jnp.dtype(d) in (jnp.float32, jnp.complex64)
-                    for d in dtypes))
-
-
 def _lm_grids(pixels: int, pixel_size, dtype):
-    """n = sqrt(1 - l^2 - m^2) over the *centred* image layout.
+    """(n, n - 1) with n = sqrt(1 - l^2 - m^2) over the *centred* image
+    layout.
 
     lm(x) = lm_scale * x + lm_bias with lm_scale = pixel_size and
     lm_bias = -pixels/2 * pixel_size (reference imaging.py:90-91).
+    ``n - 1`` is evaluated as ``-(l^2 + m^2) / (1 + n)``: subtracting 1
+    from n cancels all but a few of float32's digits near the phase
+    centre, and the W phase 2 pi w (n - 1) multiplies that error by w.
     """
     pixel_size = jnp.asarray(pixel_size, dtype)
     lm = (jnp.arange(pixels, dtype=dtype) * pixel_size
           - 0.5 * pixels * pixel_size)
     lm2 = lm * lm
-    n = jnp.sqrt(1.0 - (lm2[:, None] + lm2[None, :]))
-    return n
+    r2 = lm2[:, None] + lm2[None, :]
+    n = jnp.sqrt(1.0 - r2)
+    return n, -r2 / (1.0 + n)
 
 
 def _checkerboard(pixels: int, dtype):
@@ -117,20 +98,11 @@ def grid_to_image_impl(grid, image, kernel1d, w, pixel_size, *, pixels: int):
     fftshift(elementwise(ifft2(ifftshift(grid)))) for even N.
     """
     rdtype = image.dtype
-    if _use_pallas_fft(pixels, rdtype, grid.dtype):
-        from .pallas_fft import grid_to_image_fused
-
-        # Transposed-carry formulation; XLA cancels the adjacent
-        # transpose pairs across the unrolled W-slice loop, leaving two
-        # relayouts per channel.
-        outT = grid_to_image_fused(grid, jnp.swapaxes(image, -1, -2),
-                                   kernel1d, w, pixel_size, pixels=pixels)
-        return jnp.swapaxes(outT, -1, -2).astype(rdtype)
     cb = _checkerboard(pixels, rdtype)
     layer = _ifft2(grid * cb)
     scale = pixels * pixels  # match unnormalized cuFFT inverse
-    n = _lm_grids(pixels, pixel_size, rdtype)
-    phase = (2 * jnp.pi) * w * (n - 1.0)
+    n, nm1 = _lm_grids(pixels, pixel_size, rdtype)
+    phase = (2 * jnp.pi) * w * nm1
     taper2 = jnp.outer(kernel1d, kernel1d).astype(rdtype)
     common = cb * (n * scale) / taper2
     a = jnp.cos(phase) * common
@@ -146,32 +118,15 @@ grid_to_image = partial(jax.jit, static_argnames=("pixels",),
 def grid_to_image_parts_impl(gr, gi, image, kernel1d, w, pixel_size, *,
                              pixels: int):
     """:func:`grid_to_image_impl` taking the grid as (P, N, N) f32 re/im
-    planes (the fused gridder combine's output layout): on the Pallas
-    path the planes feed the FFT pass directly — no complex64 grid is
-    materialized anywhere between gridding and dirty accumulation."""
-    rdtype = image.dtype
-    if _use_pallas_fft(pixels, rdtype, gr.dtype):
-        from .pallas_fft import grid_to_image_fused_parts
-
-        outT = grid_to_image_fused_parts(
-            gr, gi, jnp.swapaxes(image, -1, -2), kernel1d, w, pixel_size,
-            pixels=pixels)
-        return jnp.swapaxes(outT, -1, -2).astype(rdtype)
+    planes."""
     return grid_to_image_impl(jax.lax.complex(gr, gi), image, kernel1d,
                               w, pixel_size, pixels=pixels)
 
 
 def image_to_grid_parts_impl(image, kernel1d, w, pixel_size, *,
                              pixels: int):
-    """:func:`image_to_grid_impl` returning (P, N, N) f32 re/im planes
-    (the fused degrid's input layout)."""
-    rdtype = image.dtype
-    if _use_pallas_fft(pixels, rdtype):
-        from .pallas_fft import image_to_grid_fused_parts
-
-        return image_to_grid_fused_parts(
-            jnp.swapaxes(image, -1, -2), kernel1d, w, pixel_size,
-            pixels=pixels)
+    """:func:`image_to_grid_impl` returning (P, N, N) f32 re/im
+    planes."""
     g = image_to_grid_impl(image, kernel1d, w, pixel_size, pixels=pixels)
     return (jnp.real(g).astype(jnp.float32),
             jnp.imag(g).astype(jnp.float32))
@@ -183,17 +138,16 @@ def grid_to_image_batched_impl(grids, image, kernel1d, ws, pixel_size, *,
 
     grids: (S, P, N, N) complex, centred; ws: (S,) mid-w per slice.
     Equivalent to scanning :func:`grid_to_image_impl` over slices, but
-    the S*P transforms run as one batched FFT (bigger MXU matmul batches,
-    one fusion neighbourhood for the corrections) — the per-W-slice
-    fixed-cost attack from VERDICT r2 item 1.  Costs S grids of HBM
-    instead of one; callers choose by slice count and grid size.
+    the S*P transforms run as one batched FFT with one fusion
+    neighbourhood for the corrections.  Costs S grids of device memory
+    instead of one.
     """
     rdtype = image.dtype
     cb = _checkerboard(pixels, rdtype)
     layer = _ifft2(grids * cb)
     scale = pixels * pixels
-    n = _lm_grids(pixels, pixel_size, rdtype)
-    phase = (2 * jnp.pi) * ws[:, None, None, None] * (n - 1.0)[None, None]
+    n, nm1 = _lm_grids(pixels, pixel_size, rdtype)
+    phase = (2 * jnp.pi) * ws[:, None, None, None] * nm1[None, None]
     taper2 = jnp.outer(kernel1d, kernel1d).astype(rdtype)
     common = (cb * (n * scale) / taper2)[None, None]
     acc = jnp.sum(layer.real * (jnp.cos(phase) * common)
@@ -208,15 +162,10 @@ def image_to_grid_impl(image, kernel1d, w, pixel_size, *, pixels: int):
     shift-free checkerboard formulation as :func:`grid_to_image_impl`.
     """
     rdtype = image.dtype
-    if _use_pallas_fft(pixels, rdtype):
-        from .pallas_fft import image_to_grid_fused
-
-        return image_to_grid_fused(jnp.swapaxes(image, -1, -2), kernel1d,
-                                   w, pixel_size, pixels=pixels)
     cb = _checkerboard(pixels, rdtype)
-    n = _lm_grids(pixels, pixel_size, rdtype)
+    n, nm1 = _lm_grids(pixels, pixel_size, rdtype)
     taper2 = jnp.outer(kernel1d, kernel1d).astype(rdtype)
-    phase = (-2 * jnp.pi) * w * (n - 1.0)
+    phase = (-2 * jnp.pi) * w * nm1
     pre = cb / (taper2 * n)
     layer = (image * pre) * (jnp.cos(phase) + 1j * jnp.sin(phase))
     return _fft2(layer) * _checkerboard(pixels, jnp.real(layer).dtype)

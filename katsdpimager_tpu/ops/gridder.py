@@ -1,9 +1,9 @@
 r"""Convolutional gridding and degridding (XLA formulation).
 
 The reference grids with a Romein-style CUDA scatter kernel using atomic
-float adds (``grid.mako``, ``grid.py:5-116``).  TPUs have no fast atomics;
-instead this module uses a deterministic scatter-add formulation that XLA
-lowers well:
+float adds (``grid.mako``, ``grid.py:5-116``).  This module is the same
+scatter written as XLA scatter-adds (on the GPU XLA lowers the adds of
+duplicate indices to atomics; on the CPU they run in order):
 
 - For each kernel tap row ``j`` (static loop of ``kernel_width``), all
   visibilities scatter a contiguous ``kernel_width``-wide row of weighted
@@ -25,8 +25,8 @@ Numerical conventions match the reference host gridder (``grid.py:1032-1060``):
   ``(uv + pixels//2)`` and multiplied into the visibility before gridding;
   degridding subtracts ``weights * predicted`` from the stored visibilities.
 
-A Pallas bucket-tile kernel is the planned fast path for large kernels; this
-module is the correctness baseline and remains the small-kernel path.
+:mod:`.mxu_gridder` is the fast path; this module is the correctness
+baseline (and, run in float64, the oracle the accuracy checks use).
 """
 
 from __future__ import annotations

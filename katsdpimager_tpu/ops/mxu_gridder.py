@@ -1,9 +1,9 @@
-r"""MXU-native gridding/degridding: bucketed dense-matmul formulation.
+r"""Matmul gridding/degridding: bucketed dense-matmul formulation.
 
-The reference's Romein CUDA scatter (``grid.mako``) relies on fast global
-atomics; TPUs have none, and pure XLA scatter-adds are VPU/memory bound.
-This module restructures convolutional gridding so the :math:`K^2` work per
-visibility runs on the MXU (systolic array):
+The reference grids with a Romein-style CUDA scatter (``grid.mako``):
+per-thread register accumulators flushed by atomic adds.  This module
+instead restructures convolutional gridding so the :math:`K^2` work per
+visibility runs as dense matrix products:
 
 1. **Planning (host, once per channel)** — visibilities are sorted in
    Morton order of their UV tile and cut into *chunks* of at most ``Mc``
@@ -18,26 +18,24 @@ visibility runs on the MXU (systolic array):
    ``V[r, m] = conj(kernel[wp_m, sub_v_m, r - (v0_m - anchor_v)])`` of
    shape ``(Rv + K, Mc)`` and
    ``U[m, c] = sample_m * conj(kernel[wp_m, sub_u_m, c - (u0_m - anchor_u)])``
-   of shape ``(Mc, Ru + K)``.  The TPU default (``assembly="tapdict"``)
-   gathers each row fully shifted from a precomputed (kernel row,
-   in-tile shift) dictionary — one gather per factor matrix, no
-   per-vis tap placement at all; ``fft`` (batched-iFFT phase-ramp
-   materialization, the CPU default), ``matmul`` (iDFT matrices folded
-   into the band product), ``tapsmm``, ``onehot`` and ``joint`` are
-   selectable variants (v5e sweep in doc/PERFORMANCE.md).
+   of shape ``(Mc, Ru + K)``.  ``assembly`` selects how: ``fft``
+   (batched-iFFT phase-ramp materialization), ``tapdict`` (one gather per
+   factor matrix from a precomputed (kernel row, in-tile shift)
+   dictionary), ``matmul`` (iDFT matrices folded into the band product),
+   ``tapsmm``, ``onehot`` and ``joint``.  :func:`default_assembly` picks
+   one per platform.
 
-3. **Accumulation (device, MXU)** — the chunk's grid contribution is the
+3. **Accumulation (device)** — the chunk's grid contribution is the
    rank-``Mc`` product ``V @ U``.  The dense formulation computes all
    bands in parallel groups and lands them in a 4-colour tile array
    (same-colour windows are disjoint) folded into the grid with four
    dense shifted adds; the scan formulation accumulates windows
    sequentially with dynamic-slice read-modify-writes.  With
    ``Rv = Ru = 64`` and ``K = 60`` the matmul does
-   :math:`(R+K)^2 M_c` useful-plus-padding work at ~23% density — orders
-   of magnitude faster than elementwise scatter for large kernels.
+   :math:`(R+K)^2 M_c` useful-plus-padding work at ~23% density.
 
-Degridding is the transpose: ``T = V^T @ window`` (MXU) followed by a
-tap contraction per visibility, with the same assembly choices.
+Degridding is the transpose: ``T = V^T @ window`` followed by a tap
+contraction per visibility, with the same assembly choices.
 
 Numerical semantics are identical to :mod:`.gridder` (same conventions,
 different evaluation order; f32 sums reassociate).
@@ -45,7 +43,6 @@ different evaluation order; f32 sums reassociate).
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import NamedTuple
 
@@ -53,11 +50,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-#: Matmul precision for gridding contractions.  TPU defaults to reduced
-#: (bf16-input) matmuls, which put ~1e-2 relative errors into dirty images;
-#: HIGHEST restores true f32.  Override with KTPU_MATMUL_PRECISION=default
-#: for speed experiments.
-_PRECISION = os.environ.get("KTPU_MATMUL_PRECISION", "highest")
+#: Matmul precision for every gridding contraction.  A float32 product at
+#: the default precision may run in TF32 on an NVIDIA GPU (10-bit
+#: mantissa, about three digits), which would put ~1e-3 relative errors
+#: into the grid; HIGHEST keeps true f32 so the grid stays within the
+#: 5e-7 f64-oracle gate.
+_PRECISION = "highest"
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +211,7 @@ def _chunk_factors(kernel, uv, sub_uv, w_plane, anchor, valid, *,
     kv = jnp.where(valid[:, None], kv, 0)
 
     # Scatter each vis's K kernel taps to its window offset via a
-    # comparison-select reduction.  (A take_along_axis gather here lowers to
-    # per-lane gathers, ~15x slower on TPU than this VPU-friendly form.)
+    # comparison-select reduction.
     taps = jnp.arange(K, dtype=jnp.int32)
     cols = jnp.arange(ru + K, dtype=jnp.int32)
     pos_u = u0r[:, None] + taps[None, :]            # (Mc, K)
@@ -582,71 +579,18 @@ def grid_chunks_dense_impl(grid_pad, kernel, weights_grid, plan_uv, plan_sub,
       k t / L} / L`` (the iDFT matrix) the band is ``conj(G^T @ core @ G)``
       where ``core[p, k, l] = sum_m Sv[m, k] conj(sample[p, m]) Su[m, l]``
       and ``Su/Sv`` are the spectral kernel rows times the shift phase
-      ramps.  Three L-sized matmuls per chunk, all MXU — on TPU this beats
-      the iFFT path ~10x because XLA's TPU FFT runs at memory speed while
-      the MXU is nearly idle.
+      ramps.  Three L-sized matmuls per chunk, no FFT.
     - ``"tapsmm"``: materialize shifted taps by a single large GEMM per
       group — ``B = S @ G[:, :ts+K]`` with ``S`` the ``(group*Mc, L)``
       stack of spectral rows×ramps — then one batched band product per
       group.  Mathematically identical to ``"fft"`` (the GEMM *is* the
       iDFT) but it moves two thirds of the flops from batched small
-      matmuls into one MXU-shaped contraction; measured faster than
-      ``"matmul"`` on v5e.
-    - ``"pallas"``: the fused Mosaic kernel (:mod:`.pallas_gridder`) —
-      factor assembly in VMEM (one-hot row select + binary lane rolls),
-      band matmul and slot-placed accumulation all on-chip; removes the
-      HBM taps-table gathers that bound every XLA assembly.
+      matmuls into one large contraction.
     """
-    if assembly == "pallas":
-        # The fused kernel needs (a) the footprint inside the 2-tile
-        # band window (K <= ts + 1) and (b) HBM headroom for its f32
-        # colour-plane accumulators (4 * P * ext2^2 * 4 B * 2); at
-        # 8k / IQUV that is ~9 GB, more than half the chip.  Oversize
-        # or wide-K layouts fall back to the XLA shifted-tap path.
-        # Cap default 5.0: pol-PAIR groups at 8k IQUV (4.56 GB) fit
-        # the maximal 16384-chunk production layout on a 16 GB v5e and
-        # measured 3% faster than per-pol groups (round-5 sweep I).
-        ntv = -(-pixels // ts) + 1
-        nt2 = -(-ntv // 2) + 1
-        ext2 = nt2 * 2 * ts
-        Pp_ = grid_pad.shape[0]
-        acc_gb = 4 * Pp_ * ext2 * ext2 * 4 * 2 / 1e9
-        max_gb = float(os.environ.get("KTPU_PALLAS_MAX_ACC_GB", "5.0"))
-        if kernel.shape[-1] + ts - 1 <= 2 * ts:
-            from .pallas_gridder import grid_chunks_fused
-
-            if acc_gb <= max_gb:
-                return grid_chunks_fused(
-                    grid_pad, kernel, weights_grid, plan_uv, plan_sub,
-                    plan_wp, plan_vis, plan_anchor, plan_valid, dw_chunks,
-                    n_chunks, pixels=pixels, ts=ts)
-            if acc_gb / Pp_ <= max_gb and Pp_ > 1:
-                # Polarization split: 8k full-Stokes accumulator planes
-                # (~9 GB jointly) don't fit next to the working set —
-                # run the fused kernel over the largest pol GROUPS whose
-                # planes fit (pairs at 8k IQUV).  Each extra group costs
-                # one factor assembly (~20% of the kernel's marginal
-                # time); still far ahead of the XLA tapdict fallback
-                # this replaces (IQUV batches at ~3.2x the P=1 band
-                # time, doc/PERFORMANCE.md round-4 IQUV scaling).
-                pg = max(1, int(max_gb / (acc_gb / Pp_)))
-                outs = [
-                    grid_chunks_fused(
-                        grid_pad[p:p + pg], kernel,
-                        None if weights_grid is None
-                        else weights_grid[p:p + pg],
-                        plan_uv, plan_sub, plan_wp, plan_vis[..., p:p + pg],
-                        plan_anchor, plan_valid,
-                        None if dw_chunks is None
-                        else dw_chunks[..., p:p + pg],
-                        n_chunks, pixels=pixels, ts=ts)
-                    for p in range(0, Pp_, pg)]
-                return jnp.concatenate(outs, axis=0)
-        assembly = "tapdict"
     if group is None:
-        # Measured on v5e: small groups keep the band-scatter working set
-        # down for the matmul assemblies; the iFFT path amortizes its FFT
-        # batches better with large groups.
+        # Small groups keep the band-scatter working set down for the
+        # matmul assemblies; the iFFT path amortizes its FFT batches over
+        # large groups.
         group = 128 if assembly != "fft" else 2048
     K = kernel.shape[-1]
     Np = pixels
@@ -679,24 +623,21 @@ def grid_chunks_dense_impl(grid_pad, kernel, weights_grid, plan_uv, plan_sub,
             -2j * np.pi * np.outer(np.arange(TS2), tk) / L
         ).astype(np.complex64))
     if assembly == "onehot":
-        # HBM row-gathers dominate the assembly stage on TPU (measured 43
-        # of 63 ms at the 4k/K=60 point); expressing the row selection as
-        # one-hot MXU matmuls instead trades them for cheap systolic work.
-        # The one-hot operand is exact in bf16, so it runs single-pass
-        # (Precision.DEFAULT) while the table operand keeps full f32
-        # (HIGHEST) — the result is bit-comparable to the f32 gather path.
+        # Row selection as one-hot matmuls instead of row gathers.  The
+        # one-hot operand is exact at any precision, but the table operand
+        # must stay full f32 (a TF32 pass would round it), so the products
+        # run at _PRECISION — bit-comparable to the f32 gather path.
         kflat_ri = jnp.concatenate([kflat.real, kflat.imag], axis=-1)
         ramp_ri = jnp.concatenate([ramp_tab[:ts].real,
                                    ramp_tab[:ts].imag], axis=-1)
-        _oh_prec = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
 
         def onehot_S(idx, off):
             oh_spec = (idx[:, None] == jnp.arange(W * O, dtype=idx.dtype)
                        ).astype(jnp.float32)
             oh_ramp = (off[:, None] == jnp.arange(ts, dtype=off.dtype)
                        ).astype(jnp.float32)
-            sp = jnp.dot(oh_spec, kflat_ri, precision=_oh_prec)
-            rp = jnp.dot(oh_ramp, ramp_ri, precision=_oh_prec)
+            sp = jnp.dot(oh_spec, kflat_ri, precision=_PRECISION)
+            rp = jnp.dot(oh_ramp, ramp_ri, precision=_PRECISION)
             return (jax.lax.complex(sp[:, :L], sp[:, L:])
                     * jax.lax.complex(rp[:, :L], rp[:, L:]))
     if assembly == "joint":
@@ -843,8 +784,10 @@ def grid_chunks_dense_impl(grid_pad, kernel, weights_grid, plan_uv, plan_sub,
             Su = spec_u * ramp_tab[u0r]
             Sv = spec_v * ramp_tab[v0r]
             Gt = G[:, :TSK]
-            Bu = (Su.reshape(g * Mc, L) @ Gt).reshape(g, Mc, TSK)
-            Bv = (Sv.reshape(g * Mc, L) @ Gt).reshape(g, Mc, TSK)
+            Bu = jnp.matmul(Su.reshape(g * Mc, L), Gt,
+                            precision=_PRECISION).reshape(g, Mc, TSK)
+            Bv = jnp.matmul(Sv.reshape(g * Mc, L), Gt,
+                            precision=_PRECISION).reshape(g, Mc, TSK)
             if dwx is None:
                 sample = jax.vmap(
                     lambda uv_c, anc_c, vis_c, val_c: sample_of(
@@ -915,49 +858,10 @@ def grid_chunks_parts_impl(kernel, weights_grid, plan_uv, plan_sub,
                            plan_wp, plan_vis, plan_anchor, plan_valid,
                            dw_chunks=None, n_chunks=None, *, pixels: int,
                            ts: int, assembly: str = "fft"):
-    """Grid straight to cropped (P, N, N) f32 ``(gr, gi)`` planes — the
-    fused-FFT input layout.
-
-    Zero base grid (callers with a running grid use
-    :func:`grid_chunks_dense_impl`).  With ``assembly="pallas"`` the
-    colour-plane combine runs as a Pallas kernel
-    (:func:`.pallas_gridder.combine_planes_fused`) and no (P, ext, ext)
-    complex64 grid is ever materialized; other assemblies (and the
-    oversize/wide-K fallbacks, same rules as grid_chunks_dense_impl)
-    build the complex grid and split it."""
+    """Grid onto a zero base grid and return the cropped (P, N, N) grid as
+    f32 ``(gr, gi)`` planes (callers with a running grid use
+    :func:`grid_chunks_dense_impl`)."""
     Pp_ = plan_vis.shape[-1]
-    if assembly == "pallas":
-        ntv = -(-pixels // ts) + 1
-        nt2 = -(-ntv // 2) + 1
-        ext2 = nt2 * 2 * ts
-        acc_gb = 4 * Pp_ * ext2 * ext2 * 4 * 2 / 1e9
-        max_gb = float(os.environ.get("KTPU_PALLAS_MAX_ACC_GB", "5.0"))
-        if kernel.shape[-1] + ts - 1 <= 2 * ts:
-            from .pallas_gridder import grid_chunks_fused_parts
-
-            if acc_gb <= max_gb:
-                return grid_chunks_fused_parts(
-                    kernel, weights_grid, plan_uv, plan_sub, plan_wp,
-                    plan_vis, plan_anchor, plan_valid, dw_chunks,
-                    n_chunks, pixels=pixels, ts=ts)
-            if acc_gb / Pp_ <= max_gb and Pp_ > 1:
-                # Same polarization-group split as grid_chunks_dense_impl
-                # (8k full-Stokes accumulators exceed HBM headroom).
-                pg = max(1, int(max_gb / (acc_gb / Pp_)))
-                outs = [
-                    grid_chunks_fused_parts(
-                        kernel,
-                        None if weights_grid is None
-                        else weights_grid[p:p + pg],
-                        plan_uv, plan_sub, plan_wp, plan_vis[..., p:p + pg],
-                        plan_anchor, plan_valid,
-                        None if dw_chunks is None
-                        else dw_chunks[..., p:p + pg],
-                        n_chunks, pixels=pixels, ts=ts)
-                    for p in range(0, Pp_, pg)]
-                return (jnp.concatenate([o[0] for o in outs], axis=0),
-                        jnp.concatenate([o[1] for o in outs], axis=0))
-        assembly = "tapdict"
     ext = dense_pad_size(pixels, ts)
     gpad = jnp.zeros((Pp_, ext, ext), jnp.complex64)
     gpad = grid_chunks_dense_impl(
@@ -983,32 +887,51 @@ def occupied_chunks(valid) -> jnp.ndarray:
     return jnp.sum(jnp.any(jnp.asarray(valid), axis=-1).astype(jnp.int32))
 
 
-def default_assembly() -> str:
-    """Band-assembly default: the fused Pallas kernel on TPU (round-4 v5e
-    A/B at 4k/K=60: pallas 35.3/64.3 ms vs tapdict 39.8/77.4 at 1M/4M vis
-    — 2.44 vs 3.17 us/chunk marginal — with f64-oracle error 1.7e-7, the
-    same f32 class; ``benchmarks/pallas_tpu.py``).  Wide-K/small-tile
-    layouts (K > ts + 1) fall back to the shifted-tap dictionary inside
-    :func:`grid_chunks_dense_impl`; iFFT materialization elsewhere.
-    Override with
-    KTPU_GRID_ASSEMBLY=fft|matmul|tapsmm|onehot|joint|tapdict|pallas."""
-    env = os.environ.get("KTPU_GRID_ASSEMBLY")
-    if env in ("fft", "matmul", "tapsmm", "onehot", "joint", "tapdict",
-               "pallas"):
-        return env
-    return "pallas" if jax.devices()[0].platform == "tpu" else "fft"
+#: Per-channel gridder formulation per JAX platform: "dense" computes all
+#: bands in parallel; "scan" accumulates chunk windows in sequence (cheap
+#: on the CPU, where padding hurts).  On an H100 80GB HBM3 (700 W) dense
+#: grids a 512k-visibility 4k slice in 12.0 ms against scan's 214 ms
+#: (benchmarks/gpu_defaults.py).
+GPU_MODE = "dense"
+_MODE = {"cpu": "scan", "gpu": GPU_MODE}
+
+#: Band assembly per JAX platform.  The CPU runs the iFFT materialization
+#: (XLA's CPU FFT is fast there).  GPU_ASSEMBLY is the fastest assembly
+#: that meets the 5e-7 grid gate on an H100 80GB HBM3 (700 W): 10.3 ms
+#: grid + 8.4 ms degrid per 512k-visibility 4k slice, against 14.5 +
+#: 12.7 for the runner-up "matmul"; "fft" misses the gate (6e-6, its
+#: float32 phase ramps) (benchmarks/gpu_defaults.py).
+GPU_ASSEMBLY = "tapdict"
+_ASSEMBLY = {"cpu": "fft", "gpu": GPU_ASSEMBLY}
+
+
+def supported_platform(platform: str | None = None) -> str:
+    """The JAX platform the imager runs on: ``"cpu"`` or ``"gpu"``.
+
+    ``platform`` defaults to the first device's; any other platform is an
+    error rather than a silent CPU-tuned default."""
+    if platform is None:
+        platform = jax.devices()[0].platform
+    if platform not in _ASSEMBLY:
+        raise RuntimeError(
+            f"unsupported JAX platform {platform!r}: the imager runs on the "
+            "CPU or an NVIDIA GPU")
+    return platform
+
+
+def default_assembly(platform: str | None = None) -> str:
+    """Band-assembly default for ``platform`` (see :data:`_ASSEMBLY`)."""
+    return _ASSEMBLY[supported_platform(platform)]
 
 
 def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
                        plan_vis, plan_anchor, plan_valid, n_chunks=None, *,
                        pixels: int, rv: int, ru: int,
-                       group: int | None = None, assembly: str = "fft",
-                       tile_aligned: bool = False):
+                       group: int | None = None, assembly: str = "fft"):
     """Predict + subtract for all chunks; returns updated (C, Mc, P) vis.
 
     ``grid`` is the (P, >=N, >=N) complex model grid, or an f32
-    ``(gre, gim)`` pair on the fused-Pallas path (converted here when a
-    fallback assembly needs complex).  Chunk windows are read-only, so
+    ``(gre, gim)`` pair.  Chunk windows are read-only, so
     chunks evaluate in parallel (vmap) within memory-bounded groups.
     ``assembly`` as in :func:`grid_chunks_dense_impl`: ``"matmul"``
     evaluates the transposed spectral form
@@ -1018,23 +941,6 @@ def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
     (occupied-first layouts); unprocessed padding chunks pass their vis
     through unchanged.
     """
-    if assembly == "pallas":
-        # Fused Mosaic degrid.  ``tile_aligned`` is a STATIC promise that
-        # anchors are multiples of ``rv`` (plan_chunks_tiled / the native
-        # wave pack): the kernel's window DMA passes tile indices so
-        # Mosaic can PROVE the HBM slice offsets (8, 128)-aligned — a raw
-        # bbox anchor fails to compile on real TPU (round-5 8k cube).
-        # Same window constraint as the grid kernel.
-        if (tile_aligned and rv == ru
-                and kernel.shape[-1] + rv - 1 <= 2 * rv):
-            from .pallas_gridder import degrid_chunks_fused
-
-            pred = degrid_chunks_fused(
-                grid, kernel, plan_uv, plan_sub, plan_wp, plan_anchor,
-                n_chunks, pixels=pixels, ts=rv)
-            pred = pred * plan_valid[..., None]
-            return plan_vis - plan_wt * pred.astype(plan_vis.dtype)
-        assembly = "tapdict"
     if isinstance(grid, tuple):
         grid = jax.lax.complex(grid[0], grid[1])
     if group is None:
@@ -1062,22 +968,21 @@ def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
             -2j * np.pi * np.outer(np.arange(L), tk) / L
         ).astype(np.complex64))
     if assembly == "onehot":
-        # One-hot MXU row selection instead of HBM gathers (see
+        # One-hot matmul row selection instead of gathers (see
         # grid_chunks_dense_impl); non-tiled plans bound the in-window
         # offset by the chunk bbox constraint, i.e. [0, max(rv, ru)].
         R_off = max(rv, ru) + 1
         kflat_ri = jnp.concatenate([kflat.real, kflat.imag], axis=-1)
         ramp_ri = jnp.concatenate([ramp_tab[:R_off].real,
                                    ramp_tab[:R_off].imag], axis=-1)
-        _oh_prec = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
 
         def onehot_S(idx, off):
             oh_spec = (idx[:, None] == jnp.arange(W * O, dtype=idx.dtype)
                        ).astype(jnp.float32)
             oh_ramp = (off[:, None] == jnp.arange(R_off, dtype=off.dtype)
                        ).astype(jnp.float32)
-            sp = jnp.dot(oh_spec, kflat_ri, precision=_oh_prec)
-            rp = jnp.dot(oh_ramp, ramp_ri, precision=_oh_prec)
+            sp = jnp.dot(oh_spec, kflat_ri, precision=_PRECISION)
+            rp = jnp.dot(oh_ramp, ramp_ri, precision=_PRECISION)
             return (jax.lax.complex(sp[:, :L], sp[:, L:])
                     * jax.lax.complex(rp[:, :L], rp[:, L:]))
     if assembly == "joint":
@@ -1086,7 +991,7 @@ def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
         R_off = max(rv, ru) + 1
         joint_tab = (kflat[:, None, :]
                      * ramp_tab[None, :R_off, :]).reshape(W * O * R_off, L)
-    if assembly in ("tapdict", "pallas"):
+    if assembly == "tapdict":
         # Precomputed shifted tap rows (see grid_chunks_dense_impl).
         R_off = max(rv, ru) + 1
         TL = max(rv, ru) + K
@@ -1149,8 +1054,10 @@ def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
         spec_v = kflat[wp * O + sub[..., 1]]
         Su = spec_u * ramp_tab[u0r]
         Sv = spec_v * ramp_tab[v0r]
-        Bu = (Su.reshape(g * Mc, L) @ G[:, :ru + K]).reshape(g, Mc, ru + K)
-        Bv = (Sv.reshape(g * Mc, L) @ G[:, :rv + K]).reshape(g, Mc, rv + K)
+        Bu = jnp.matmul(Su.reshape(g * Mc, L), G[:, :ru + K],
+                        precision=_PRECISION).reshape(g, Mc, ru + K)
+        Bv = jnp.matmul(Sv.reshape(g * Mc, L), G[:, :rv + K],
+                        precision=_PRECISION).reshape(g, Mc, rv + K)
         win = jax.vmap(window)(anchor)                    # (g, P, R, C)
         T = jnp.einsum("gmr,gprc->gpmc", Bv, win, precision=_PRECISION,
                        preferred_element_type=grid.dtype)
@@ -1172,13 +1079,6 @@ def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
 
     one = {"fft": one_fft,
            "tapdict": one_tapdict}.get(assembly, one_matmul)
-    if assembly == "pallas":
-        # grid-side default arriving here; the fused degrid handles it
-        # above, and non-tiled layouts take the shifted-tap XLA path
-        # (NOT one_matmul — the dict fallback silently demoted degrid
-        # to the slow spectral form when the pallas default landed).
-        one = one_tapdict
-
     n_groups = -(-NC // group)
     pad_nc = n_groups * group - NC
 
@@ -1212,7 +1112,7 @@ def degrid_chunks_impl(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
 degrid_chunks = partial(
     jax.jit,
     static_argnames=("pixels", "rv", "ru", "group",
-                     "assembly", "tile_aligned"))(degrid_chunks_impl)
+                     "assembly"))(degrid_chunks_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -1237,10 +1137,7 @@ class MxuGridder:
                  rv: int = 64, ru: int = 64, mc: int = 256,
                  mode: str | None = None):
         if mode is None:
-            # dense wins on TPU (parallel bands); scan wins on CPU where
-            # the windowed RMW is cheap and padding hurts.
-            mode = ("dense" if jax.devices()[0].platform == "tpu"
-                    else "scan")
+            mode = _MODE[supported_platform()]
         self.pixels = pixels
         self.K = kernel_width
         self.num_pols = num_pols
@@ -1282,12 +1179,10 @@ class MxuGridder:
             return grid
         vis_arr = (jnp.asarray(plan.vis) if vis_chunked is None
                    else vis_chunked)
-        from .. import xfer
-
         if self.mode == "dense":
             ext = dense_pad_size(self.pixels, self.rv)
-            gpad = xfer.device_pad(grid, ext - self.pixels,
-                                   ext - self.pixels)
+            gpad = jnp.pad(grid, ((0, 0), (0, ext - self.pixels),
+                                  (0, ext - self.pixels)))
             valid = jnp.asarray(plan.valid)
             gpad = grid_chunks_dense(
                 gpad, kernel, weights_grid,
@@ -1301,7 +1196,7 @@ class MxuGridder:
                                                  default_assembly()))
             return gpad[:, :self.pixels, :self.pixels]
         pad_v, pad_u = self.rv, self.ru
-        gpad = xfer.device_pad(grid, pad_v, pad_u)
+        gpad = jnp.pad(grid, ((0, 0), (0, pad_v), (0, pad_u)))
         args = (gpad, kernel, weights_grid,
                 jnp.asarray(plan.uv), jnp.asarray(plan.sub_uv),
                 jnp.asarray(plan.w_plane), vis_arr,
@@ -1312,10 +1207,8 @@ class MxuGridder:
 
     def degrid(self, grid, kernel, plan: ChunkPlan, vis_chunked):
         """Subtract degridded model from chunked vis; returns (C, Mc, P)."""
-        from .. import xfer
-
         pad_v, pad_u = self.rv, self.ru
-        gpad = xfer.device_pad(grid, pad_v, pad_u)
+        gpad = jnp.pad(grid, ((0, 0), (0, pad_v), (0, pad_u)))
         args = (gpad, kernel,
                 jnp.asarray(plan.uv), jnp.asarray(plan.sub_uv),
                 jnp.asarray(plan.w_plane), jnp.asarray(plan.weights),
@@ -1323,8 +1216,7 @@ class MxuGridder:
                 jnp.asarray(plan.valid))
         return degrid_chunks(*args, occupied_chunks(args[-1]),
                              pixels=self.pixels, rv=self.rv,
-                             ru=self.ru, assembly=default_assembly(),
-                             tile_aligned=self.mode == "dense")
+                             ru=self.ru, assembly=default_assembly())
 
     def upload_plan(self, plan: ChunkPlan) -> ChunkPlan:
         """Upload the plan's coordinate fields to the device ONCE.
@@ -1332,8 +1224,8 @@ class MxuGridder:
         ``grid``/``degrid``/``chunk_vis`` call ``jnp.asarray`` on these
         fields per invocation — a no-op for device arrays, but a repeated
         multi-MB host upload for numpy plans (the plan is fixed across
-        major cycles, so pay it once).  ``vis`` stays host-side (complex
-        cannot cross some transports eagerly; pass ``vis_chunked``)."""
+        major cycles, so pay it once).  ``vis`` stays host-side (grid and
+        degrid take it as ``vis_chunked``)."""
         return plan._replace(
             uv=jnp.asarray(plan.uv), sub_uv=jnp.asarray(plan.sub_uv),
             w_plane=jnp.asarray(plan.w_plane),
@@ -1351,9 +1243,7 @@ class MxuGridder:
         """
         shape = plan.weights.shape   # (NC, Mc, P); vis may be dropped
         if isinstance(vis, jnp.ndarray):
-            from .. import xfer
-
-            out = xfer.device_zeros(shape, jnp.complex64)
+            out = jnp.zeros(shape, jnp.complex64)
             return out.at[jnp.asarray(plan.row_chunk),
                           jnp.asarray(plan.row_slot)].set(vis)
         out = np.zeros(shape, np.complex64)

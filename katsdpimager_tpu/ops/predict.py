@@ -1,10 +1,10 @@
 r"""Direct prediction: DFT of point-source components, subtracted in place.
 
 The reference implements this as a CUDA kernel looping sources in shared
-memory per visibility (``predict.mako``, ``predict.py``).  On TPU the
-computation is a natural MXU workload: the phase matrix is a (N_vis x 3) @
-(3 x N_src) matmul, and the flux accumulation another matmul, evaluated in
-source blocks so nothing large is materialised.
+memory per visibility (``predict.mako``, ``predict.py``).  Here the
+computation is two matmuls: the phase matrix is a (N_vis x 3) @
+(3 x N_src) product, and the flux accumulation another, evaluated in
+visibility blocks so nothing large is materialised.
 
 Conventions (parity with reference ``predict.py:122-150,419-439``):
 
@@ -74,7 +74,7 @@ def predict_subtract(lmn, flux, uv, sub_uv, w_plane, vis, weights,
     vis: (N, P) complex64 (donated); weights: (N, P) float32.
     ``w_bias`` must already include the W-slice mid-w.  N must be a
     multiple of ``block`` or smaller than it (pad with zero weights);
-    blocking keeps the (block, S) phase matrix VMEM-friendly.
+    blocking bounds the (block, S) phase matrix.
     """
     u = (uv[:, 0].astype(jnp.float32) * oversample
          + sub_uv[:, 0].astype(jnp.float32) + 0.5) * uv_scale
@@ -85,8 +85,8 @@ def predict_subtract(lmn, flux, uv, sub_uv, w_plane, vis, weights,
     fluxf = flux.astype(jnp.float32)
 
     def block_predict(uvw_b):
-        # MXU path: phase (B, S) then two real matmuls against the flux.
-        # Highest precision: reduced-precision phases shift sources.
+        # Phase (B, S) then two real matmuls against the flux.  Highest
+        # precision: TF32 phases (about three digits) shift sources.
         hp = jax.lax.Precision.HIGHEST
         phase = (-2 * jnp.pi) * jnp.matmul(uvw_b, lmn.T, precision=hp)
         re = jnp.matmul(jnp.cos(phase), fluxf, precision=hp)
@@ -120,11 +120,11 @@ def predict_subtract_exact(xi, yi, n1, flux, uv, sub_uv, vis, weights,
     (``cell_size = wavelength/image_size`` makes
     ``u_wl * l = (2*uq+1)*x / (2*N*O)`` an identity): the per-visibility
     phase factor is one of M = 2*N*O roots of unity, gathered from a
-    VMEM-resident table after exact int32 index arithmetic — no
+    table after exact int32 index arithmetic — no
     per-(vis, source) transcendentals, unlike the reference's per-pair
     ``sincospif`` (predict.mako:56-70).  The W phase takes only
     ``w_planes`` distinct values per slice, so it folds into per-plane
-    flux columns: an MXU (B,S)@(S,W*P) matmul plus a row-wise column
+    flux columns: a (B,S)@(S,W*P) matmul plus a row-wise column
     pick.  Bit-compatible with :func:`predict_subtract` to f32 rounding.
 
     vis (donated) and weights are (N, P); returns vis - weights*predicted.

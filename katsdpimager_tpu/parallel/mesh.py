@@ -1,11 +1,12 @@
 """Device mesh construction for the imaging workload.
 
-Axes:
+Axes, which follow the algorithm (the cards of a host are joined all to
+all, so no placement is preferred):
 
 - ``chan``: frequency channels — the primary data-parallel axis (zero
-  steady-state communication; place on DCN for multi-host);
+  steady-state communication);
 - ``vis``: visibility buckets within a channel — reduction-heavy (psum of
-  grids); place on ICI.
+  grids over the cards that share a channel).
 """
 
 from __future__ import annotations
@@ -25,11 +26,12 @@ def initialize_distributed(coordinator: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialise multi-host JAX (call before any device use).
 
-    On managed TPU pods ``jax.distributed.initialize()`` auto-discovers the
-    topology; explicit arguments support manual launches.  After this,
-    :func:`make_mesh` sees the global device set and the ``chan`` axis
-    spans hosts over DCN (zero steady-state communication for the channel
-    data-parallel axis; the ``vis`` axis should stay within a host/ICI).
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id; without them ``jax.distributed.initialize()`` needs
+    a cluster environment to discover.  After this, :func:`make_mesh` sees
+    the global device set; the ``chan`` axis may span hosts (it carries no
+    steady-state communication) while the ``vis`` axis should stay within
+    a host.
     """
     kwargs = {}
     if coordinator is not None:

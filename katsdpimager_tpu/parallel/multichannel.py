@@ -1,7 +1,7 @@
-"""Channel- and visibility-sharded imaging step (MXU-chunk formulation).
+"""Channel- and visibility-sharded imaging step (matmul-chunk formulation).
 
 The full per-channel pipeline — weight gridding, uniform density weights,
-MXU dense-matmul gridding per W slice (:mod:`..ops.mxu_gridder`), FFT +
+dense-matmul gridding per W slice (:mod:`..ops.mxu_gridder`), FFT +
 W-correction accumulation, and batched CLEAN minor cycles — expressed as
 ONE jitted function over stacked per-channel arrays, shard_mapped over a
 ``("chan", "vis")`` mesh:
@@ -131,16 +131,15 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
         density = jnp.where(
             wgrid > 0, 1.0 / jnp.where(wgrid > 0, wgrid, 1.0), 0.0)
 
-    # ---- W-stacked dirty image via the MXU chunk gridder
+    # ---- W-stacked dirty image via the matmul chunk gridder
     if nc_slices is None:
         nc_slices = jnp.sum(jnp.any(valid, axis=-1).astype(jnp.int32),
                             axis=-1)                     # (S,)
 
     batch_slices = os.environ.get("KTPU_BATCH_SLICES", "0") == "1"
 
-    # The f32 parts pipeline (fused combine -> fused FFT, no complex64
-    # grid materialization) — same gate as _use_pallas_fft; double
-    # precision keeps the complex path.
+    # The f32 parts planes (gridder -> FFT); double precision keeps the
+    # complex path.
     use_parts = (taper1d.dtype == jnp.float32
                  and vis.dtype == jnp.complex64)
 
@@ -437,12 +436,10 @@ def make_example_batch(cfg: MultiChannelConfig, num_channels: int,
                     if M == 0:
                         raise
 
-    from .. import xfer
-
     return ChannelBatch(
-        kernel=xfer.device_complex(kernels), taper1d=jnp.asarray(tapers),
+        kernel=jnp.asarray(kernels), taper1d=jnp.asarray(tapers),
         pixel_size=jnp.asarray(pixel_sizes), mid_w=jnp.asarray(mid_ws),
         uv=jnp.asarray(out["uv"]), sub_uv=jnp.asarray(out["sub_uv"]),
         w_plane=jnp.asarray(out["w_plane"]), anchor=jnp.asarray(anchors),
         valid=jnp.asarray(valids), weights=jnp.asarray(out["weights"]),
-        vis=xfer.device_complex(out["vis"]))
+        vis=jnp.asarray(out["vis"]))

@@ -1,13 +1,11 @@
-"""Unrollable scan over the (static, small) W-slice axis.
+"""Scan over the static W-slice axis, optionally unrolled.
 
-The round-4 device profile put ~23% of the production step in scan/cond
-plumbing (doc/PERFORMANCE.md, round-4 trace table).  The W-slice count is
-a static property of the batch geometry and small (the reference's
-w-slice search returns ~4 for real max-w, parameters.py), so the slice
-loops unroll into straight-line HLO by default — XLA then overlaps and
-fuses across slice bodies and drops the per-iteration gather/carry
-machinery.  ``KTPU_UNROLL_SLICES=0`` restores ``lax.scan`` (useful when
-compile time matters more than step time, e.g. very large S).
+The loop is a ``lax.scan`` by default, so compile time does not grow with
+the slice count: the 8k MeerKAT-64 cube at the default ``--w-step`` has 39
+W slices, and each pass over them (PSF, major cycles, degrid) unrolled
+into straight-line code multiplies the program by that count.
+``KTPU_UNROLL_SLICES=1`` unrolls the loop instead, which lets XLA fuse
+across slice bodies at the price of compile time.
 """
 
 from __future__ import annotations
@@ -19,13 +17,14 @@ import jax.numpy as jnp
 
 
 def scan_slices(body, init, xs):
-    """``lax.scan(body, init, xs)`` with default Python unrolling.
+    """``lax.scan(body, init, xs)``, or its Python unrolling under
+    ``KTPU_UNROLL_SLICES=1``.
 
     Same contract as ``lax.scan`` for tuple-of-arrays ``xs`` with equal
     leading (slice) axes; ``body`` returns ``(carry, y)`` where ``y`` may
     be None (pure carry) or an array pytree (stacked on return).
     """
-    if os.environ.get("KTPU_UNROLL_SLICES", "1") != "1":
+    if os.environ.get("KTPU_UNROLL_SLICES", "0") != "1":
         return jax.lax.scan(body, init, xs)
     leaves = jax.tree_util.tree_leaves(xs)
     num = leaves[0].shape[0]

@@ -163,8 +163,9 @@ class PipelineWriter(frontend.Writer):
             logger.warning("Failed to write metadata.json", exc_info=True)
 
 
-def main(argv=None) -> int:
-    """Batch pipeline CLI (reference ``imager-mkat-pipeline.py``)."""
+def main(argv=None, devices=None) -> int:
+    """Batch pipeline CLI (reference ``imager-mkat-pipeline.py``).
+    ``devices`` restricts ``--cube`` mode to a subset of the devices."""
     import argparse
     import sys
 
@@ -194,7 +195,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv, namespace=arguments.SmartNamespace())
     setup_logging(args.log_level)
 
-    from .xfer import enable_compilation_cache
+    from .compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -219,7 +220,7 @@ def main(argv=None) -> int:
         if args.cube:
             from . import cube_frontend
 
-            cube_frontend.run_cube(args, dataset, writer)
+            cube_frontend.run_cube(args, dataset, writer, devices)
         else:
             frontend.run(args, dataset, writer)
         stop = (args.stop_channel if args.stop_channel is not None

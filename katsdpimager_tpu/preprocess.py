@@ -18,7 +18,7 @@ Behavioural parity with the reference's C++ collector
 - identically-quantized visibilities merged ("compression"), bucketed by
   (channel, w_slice).
 
-The TPU-native design differs in *how*: instead of an OpenMP loop plus an
+The jitted JAX engine differs in *how*: instead of an OpenMP loop plus an
 adjacent-merge pass, the whole batch is transformed vectorized under jit,
 sorted by a packed 62-bit key and merged with a segment-sum — which merges
 *all* duplicates in a buffer, not just adjacent ones, so compression is at
@@ -28,6 +28,8 @@ least as strong as the reference for the same buffer size.
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
 from functools import partial
 from typing import List, Optional, Sequence
 
@@ -36,7 +38,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from . import xfer
 
 # -----------------------------------------------------------------------------
 # Static per-channel geometry for quantization
@@ -127,8 +128,8 @@ def rotated_mueller(from_circular, to_circular, feed_angle1, feed_angle2):
 
 def _pack_keys(uv, sub_uv, w_plane, w_slice, invalid):
     """Pack quantized coordinates into three int32 lexicographic sort keys
-    (most-significant first).  int64 is avoided to keep the sort cheap on
-    TPU and x64 mode disabled.  Records compare equal exactly when all
+    (most-significant first).  int64 is avoided to keep the sort cheap
+    and x64 mode disabled.  Records compare equal exactly when all
     quantized coordinates match; invalid records sort last.
     """
     i32 = lambda x: x.astype(jnp.int32)
@@ -304,20 +305,18 @@ class VisibilityCollector:
         N = uvw.shape[0]
         if mueller_circular is not None:
             mueller_dev = rotated_mueller(
-                xfer.device_complex(np.asarray(mueller_stokes)),
-                xfer.device_complex(np.asarray(mueller_circular)),
+                jnp.asarray(np.asarray(mueller_stokes)),
+                jnp.asarray(np.asarray(mueller_circular)),
                 jnp.asarray(np.asarray(feed_angle1, np.float32)),
                 jnp.asarray(np.asarray(feed_angle2, np.float32)))
         else:
-            mueller_dev = xfer.device_complex(np.asarray(mueller_stokes))
+            mueller_dev = jnp.asarray(np.asarray(mueller_stokes))
         for channel in range(self.num_channels):
             out = _preprocess_channel(
                 self.geometries[channel], self.num_pols,
                 jnp.asarray(uvw), jnp.asarray(weights[channel]),
-                xfer.device_complex(np.asarray(vis[channel])), mueller_dev)
-            out_vis = xfer.fetch_complex(out.pop("vis"))
+                jnp.asarray(np.asarray(vis[channel])), mueller_dev)
             out = jax.device_get(out)
-            out["vis"] = out_vis
             self._store(channel, out)
             self.num_input += N
             self.num_output += int(out["count"])
@@ -459,86 +458,54 @@ class VisibilityCollectorNative(VisibilityCollector):
         super().__init__(*args, **kwargs)
 
 
-class VisibilityCollectorHDF5(VisibilityCollector):
-    """HDF5-spill backend: buckets are flushed to a temp file so host RAM
-    stays bounded for large cubes (parity with reference
-    ``preprocess.py:169-265``)."""
+class VisibilityCollectorSpill(VisibilityCollector):
+    """Disk-spill backend: each (channel, w_slice) bucket is appended to
+    raw per-field files in ``dirname``, so host RAM stays bounded for large
+    cubes (the reference spills to HDF5, ``preprocess.py:169-265``; plain
+    files need no h5py).  The reader memory-maps them."""
 
-    def __init__(self, filename, image_parameters, grid_parameters,
-                 buffer_size: int = 1 << 20, max_cache_size=None,
-                 engine: str = "jax"):
+    def __init__(self, dirname, image_parameters, grid_parameters,
+                 buffer_size: int = 1 << 20, engine: str = "jax"):
         super().__init__(image_parameters, grid_parameters, buffer_size,
                          engine=engine)
-        import h5py
-
-        # Writes round-robin across (channel, w_slice) streams, so size the
-        # chunk cache to hold one chunk set per stream — capped by
-        # ``max_cache_size`` — to avoid evict/reload thrash (reference
-        # preprocess.py:191-221).
+        os.makedirs(dirname, exist_ok=True)
+        self.dirname = dirname
         P = self.num_pols
-        per_stream = ((1 << 14) * P * (8 + 4)       # vis + weights chunks
-                      + (1 << 16) * (2 * 2 + 2 * 2 + 2))  # uv, sub_uv, w_plane
-        streams = max(1, sum(gp.w_slices for gp in self.grid_parameters))
-        cache_size = per_stream * streams
-        if max_cache_size is not None:
-            cache_size = min(cache_size, int(max_cache_size))
-            streams = max(1, cache_size // per_stream)
-        slots = streams * 100 + 1
-        while any(slots % p == 0 for p in range(2, min(slots, 100))):
-            slots += 2
-        self._file = h5py.File(filename, "w", rdcc_nbytes=cache_size,
-                               rdcc_nslots=slots)
-        self._filename = filename
-        self._dsets = {}
+        #: field -> (dtype, per-record shape)
+        self.fields = {"uv": (np.int16, (2,)), "sub_uv": (np.int16, (2,)),
+                       "w_plane": (np.int16, ()),
+                       "weights": (np.float32, (P,)),
+                       "vis": (np.complex64, (P,))}
+        self.counts = {}   # (channel, w_slice) -> records written
+
+    def path(self, channel: int, w_slice: int, field: str) -> str:
+        return os.path.join(self.dirname, f"ch{channel}_ws{w_slice}.{field}")
 
     def _store(self, channel, out):
-        import h5py  # noqa: F401
-
-        ws = out.get("w_slice")
         counts = out["slice_counts"]
         start = 0
-        P = self.num_pols
         for s in range(self.grid_parameters[channel].w_slices):
             n = int(counts[s])
             if n == 0:
                 continue
             sl = slice(start, start + n)
-            grp_name = f"ch{channel}/ws{s}"
-            if grp_name not in self._dsets:
-                g = self._file.create_group(grp_name)
-                self._dsets[grp_name] = {
-                    "uv": g.create_dataset("uv", (0, 2), maxshape=(None, 2),
-                                           dtype=np.int16, chunks=(1 << 16, 2)),
-                    "sub_uv": g.create_dataset("sub_uv", (0, 2), maxshape=(None, 2),
-                                               dtype=np.int16, chunks=(1 << 16, 2)),
-                    "w_plane": g.create_dataset("w_plane", (0,), maxshape=(None,),
-                                                dtype=np.int16, chunks=(1 << 16,)),
-                    "weights": g.create_dataset("weights", (0, P), maxshape=(None, P),
-                                                dtype=np.float32, chunks=(1 << 14, P)),
-                    "vis": g.create_dataset("vis", (0, P), maxshape=(None, P),
-                                            dtype=np.complex64, chunks=(1 << 14, P)),
-                }
-            d = self._dsets[grp_name]
-            for name in ("uv", "sub_uv", "w_plane", "weights", "vis"):
-                ds = d[name]
-                old = ds.shape[0]
-                ds.resize(old + n, axis=0)
-                ds[old:] = out[name][sl]
+            for name, (dtype, _tail) in self.fields.items():
+                with open(self.path(channel, s, name), "ab") as f:
+                    f.write(np.ascontiguousarray(out[name][sl], dtype)
+                            .tobytes())
+            self.counts[channel, s] = self.counts.get((channel, s), 0) + n
             start += n
 
     def reader(self):
-        return VisibilityReaderHDF5(self)
-
-    def close(self):
-        # Flush buffered writes so a crash between collection and read-back
-        # cannot lose data; the file handle stays open for the reader.
-        super().close()
-        self._file.flush()
+        return VisibilityReaderSpill(self)
 
 
-class VisibilityReaderHDF5(VisibilityReader):
-    def _dset(self, channel, w_slice):
-        return self._collector._dsets.get(f"ch{channel}/ws{w_slice}")
+class VisibilityReaderSpill(VisibilityReader):
+    def _field(self, channel, w_slice, name):
+        c = self._collector
+        dtype, tail = c.fields[name]
+        return np.memmap(c.path(channel, w_slice, name), dtype, mode="r",
+                         shape=(self.len(channel, w_slice),) + tail)
 
     def _empty(self):
         P = self._collector.num_pols
@@ -548,53 +515,38 @@ class VisibilityReaderHDF5(VisibilityReader):
                         z((0, P), np.complex64))
 
     def len(self, channel, w_slice):
-        d = self._dset(channel, w_slice)
-        return 0 if d is None else d["uv"].shape[0]
+        return self._collector.counts.get((channel, w_slice), 0)
 
     def slice_arrays(self, channel, w_slice):
-        d = self._dset(channel, w_slice)
-        if d is None:
+        if self.len(channel, w_slice) == 0:
             return self._empty()
-        return VisChunk(d["uv"][:], d["sub_uv"][:], d["w_plane"][:],
-                        d["weights"][:], d["vis"][:])
+        return VisChunk(*(np.array(self._field(channel, w_slice, name))
+                          for name in self._collector.fields))
 
     def slice_coords(self, channel, w_slice):
-        """Read only the coordinate datasets (planning passes skip the
+        """Read only the coordinate files (planning passes skip the
         vis/weights payload — ~80% of the slice bytes at P=4)."""
-        d = self._dset(channel, w_slice)
-        if d is None:
+        if self.len(channel, w_slice) == 0:
             e = self._empty()
             return e.uv, e.sub_uv, e.w_plane
-        return d["uv"][:], d["sub_uv"][:], d["w_plane"][:]
+        return tuple(np.array(self._field(channel, w_slice, name))
+                     for name in ("uv", "sub_uv", "w_plane"))
 
     def iter_slice(self, channel, w_slice, block_size=None):
-        """Stream fixed-size blocks through a recycled buffer
-        (``read_direct``, no per-block allocation) so read-back host memory
-        is bounded by ``block_size`` — parity with reference
-        preprocess.py:341-377.  Yielded chunks are views into the buffer:
-        consume each before advancing the iterator."""
-        d = self._dset(channel, w_slice)
-        if d is None:
-            return
-        n = d["uv"].shape[0]
+        """Stream blocks of at most ``block_size`` records, read from the
+        memory-mapped files on demand (parity with reference
+        preprocess.py:341-377)."""
+        n = self.len(channel, w_slice)
         if n == 0:
             return
         if block_size is None or block_size >= n:
             yield self.slice_arrays(channel, w_slice)
             return
-        P = self._collector.num_pols
-        buf = VisChunk(np.empty((block_size, 2), np.int16),
-                       np.empty((block_size, 2), np.int16),
-                       np.empty((block_size,), np.int16),
-                       np.empty((block_size, P), np.float32),
-                       np.empty((block_size, P), np.complex64))
+        maps = [self._field(channel, w_slice, name)
+                for name in self._collector.fields]
         for start in range(0, n, block_size):
-            m = min(block_size, n - start)
-            src = np.s_[start:start + m]
-            for name in ("uv", "sub_uv", "w_plane", "weights", "vis"):
-                d[name].read_direct(buf[name], src, np.s_[:m])
-            yield VisChunk(buf.uv[:m], buf.sub_uv[:m], buf.w_plane[:m],
-                           buf.weights[:m], buf.vis[:m])
+            sl = slice(start, min(n, start + block_size))
+            yield VisChunk(*(np.array(m[sl]) for m in maps))
 
     def close(self):
-        self._collector._file.close()
+        shutil.rmtree(self._collector.dirname, ignore_errors=True)

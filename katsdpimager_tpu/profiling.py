@@ -3,8 +3,8 @@
 Parity with the reference ``profiling.py``: an interned frame tree,
 stopwatches via contextvars, ``@profile_function`` decorators, a pluggable
 profiler (Null / Flamegraph / Collect), and flamegraph.pl-format output.
-Device-side tracing maps to ``jax.named_scope`` (visible in XProf traces)
-instead of CUDA events/NVTX.
+Device-side tracing maps to ``jax.named_scope`` (visible in profiler
+traces) instead of CUDA events/NVTX.
 """
 
 from __future__ import annotations
@@ -117,46 +117,65 @@ def profile_function(name: Optional[str] = None):
 
 
 def device_trace(log_dir: str):
-    """Start a JAX profiler trace (view with TensorBoard/XProf); the
-    TPU-native replacement for the reference's NVTX/nsight ranges."""
+    """Start a JAX profiler trace (view with TensorBoard/XProf or
+    Perfetto); it takes the place of the reference's NVTX/nsight
+    ranges."""
     return jax.profiler.trace(log_dir)
 
 
-def parse_device_profile(log_dir: str) -> Dict[Tuple[str, str], float]:
-    """Aggregate per-op device time from a captured XProf trace.
+def _kernel_line(line_name: str) -> bool:
+    """Whether a line of a GPU plane (``/device:GPU:N``) holds one event
+    per device kernel.
+
+    ``Stream #...`` lines carry each kernel and copy as CUPTI recorded
+    it; ``XLA Modules`` and ``XLA Ops`` lines, where a trace has them,
+    are spans over the same time.  Only the stream lines are summed, so
+    no time is counted twice."""
+    return line_name.startswith("Stream")
+
+
+def parse_device_profile(log_dir: str, platform: Optional[str] = None
+                         ) -> Dict[Tuple[str, str], float]:
+    """Aggregate per-kernel device time from a captured profiler trace.
 
     Reads the ``.xplane.pb`` files under ``log_dir`` (written by
     :func:`device_trace` / ``jax.profiler.trace``) and returns
-    {(line_name, op_name): total_seconds} for every event on a device
-    plane.  This is the TPU-native analogue of the reference's
-    device-event records (``profiling.py:133-149``): XLA op names carry
-    the ``jax.named_scope`` prefixes that :func:`profile` installs, so
-    the aggregation groups naturally by pipeline stage.
+    {(line_name, event_name): total_seconds} over the kernel lines of
+    every device plane (:func:`_kernel_line`): the analogue of the
+    reference's device-event records (``profiling.py:133-149``).  XLA op
+    names carry the ``jax.named_scope`` prefixes that :func:`profile`
+    installs, so the aggregation groups by pipeline stage.
 
-    Falls back to host-side XLA executor lines when no accelerator plane
-    exists (CPU test runs).
+    ``platform`` (default: JAX's) says where the traced run executed.  A
+    CPU run has no device plane, and its host-side XLA executor lines are
+    used instead; on an accelerator a trace without a device plane is an
+    error, never a silent switch to host time.
     """
     import glob
     import os
 
     from jax.profiler import ProfileData
 
+    if platform is None:
+        platform = jax.devices()[0].platform
     totals: Dict[Tuple[str, str], float] = {}
     files = sorted(glob.glob(os.path.join(log_dir, "**", "*.xplane.pb"),
                              recursive=True))
     for path in files:
         pd = ProfileData.from_file(path)
         planes = list(pd.planes)
-        device_planes = [p for p in planes
-                         if "TPU" in p.name or "GPU" in p.name
-                         or "/device:" in p.name]
-        if not device_planes:
-            # CPU fallback: PjRt client execution lines carry op timings
+        device_planes = [p for p in planes if p.name.startswith("/device:")]
+        if device_planes:
+            line_filter = _kernel_line
+        elif platform == "cpu":
             device_planes = [p for p in planes if p.name == "/host:CPU"]
-            line_filter = lambda name: ("PjRt" in name     # noqa: E731
-                                        or "xla" in name.lower())
+
+            def line_filter(name):
+                return "PjRt" in name or "xla" in name.lower()
         else:
-            line_filter = lambda name: True                # noqa: E731
+            raise RuntimeError(
+                f"{path}: no device plane in a trace of a {platform} run "
+                f"(planes: {[p.name for p in planes]})")
         for plane in device_planes:
             for line in plane.lines:
                 if not line_filter(line.name):

@@ -1,5 +1,5 @@
 """Interferometer simulator: synthesise visibilities for a point-source sky
-over an earth-rotation track and write the native HDF5 dataset.
+over an earth-rotation track and write a native dataset.
 
 Replaces the reference's RASCIL/casacore-based ``tests/simulate.py`` with a
 self-contained DFT simulation (same physics: katpoint-grade UVW from antenna
@@ -129,6 +129,23 @@ def write_dataset(filename: str, uvw, vis, frequencies, phase_centre,
                   antenna_diameter: float, longest_baseline: float,
                   weights=None, polarizations=None, weight_scale=None,
                   band=None):
+    """Write the native interchange layout (:mod:`.loader_hdf5`): an HDF5
+    file when ``filename`` ends in ``.h5``/``.hdf5`` (needs h5py), else
+    the numpy-only directory form of :mod:`.loader_npy`."""
+    if polarizations is None:
+        polarizations = [polarization.STOKES_XX, polarization.STOKES_XY,
+                         polarization.STOKES_YX, polarization.STOKES_YY]
+    if not filename.endswith((".h5", ".hdf5")):
+        from . import loader_npy
+
+        loader_npy.write(filename, uvw=uvw, vis=vis, weights=weights,
+                         frequencies=frequencies, attrs=dict(
+                             phase_centre=list(map(float, phase_centre)),
+                             antenna_diameter=float(antenna_diameter),
+                             longest_baseline=float(longest_baseline),
+                             polarizations=[int(p) for p in polarizations],
+                             weight_scale=weight_scale, band=band))
+        return
     import h5py
 
     with h5py.File(filename, "w") as f:
@@ -142,10 +159,7 @@ def write_dataset(filename: str, uvw, vis, frequencies, phase_centre,
         f.attrs["phase_centre"] = np.asarray(phase_centre, np.float64)
         f.attrs["antenna_diameter"] = float(antenna_diameter)
         f.attrs["longest_baseline"] = float(longest_baseline)
-        f.attrs["polarizations"] = np.asarray(
-            polarizations if polarizations is not None else
-            [polarization.STOKES_XX, polarization.STOKES_XY,
-             polarization.STOKES_YX, polarization.STOKES_YY], np.int32)
+        f.attrs["polarizations"] = np.asarray(polarizations, np.int32)
         if weight_scale is not None:
             f.attrs["weight_scale"] = float(weight_scale)
         if band is not None:
@@ -168,8 +182,9 @@ def make_sim_dataset(filename: str, num_antennas: int = 16,
                      max_radius: float = 500.0,
                      frequencies=None, sources=None, noise_jy: float = 0.0,
                      seed: int = 1, band: str = "L"):
-    """Create a small simulated dataset (BASELINE config 1 by default:
-    16 antennas, 1 channel, CPU-runnable)."""
+    """Create a simulated dataset (BASELINE config 1 by default: 16
+    antennas, 1 channel, CPU-runnable).  ``filename`` picks the layout as
+    in :func:`write_dataset`."""
     ants = random_array(num_antennas, max_radius, seed=seed)
     latitude = math.radians(-30.7)
     if frequencies is None:

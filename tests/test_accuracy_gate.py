@@ -1,5 +1,5 @@
 """BASELINE accuracy gates (BASELINE.md): per-channel images from the fast
-(MXU-chunked) path must agree with the reference scatter path within 1e-4
+(matmul-chunked) path must agree with the reference scatter path within 1e-4
 of the peak flux, and the full pipeline must be deterministic."""
 
 import numpy as np
@@ -117,9 +117,9 @@ class TestFastPathAccuracy:
         assert normalized.max() <= 1e-6
 
     def test_mxu_grid_vs_f64_oracle(self):
-        """The f32 MXU grid is within 5e-7 of an exact float64 scatter
+        """The f32 matmul grid is within 5e-7 of an exact float64 scatter
         oracle — the gridding itself carries no excess error (each of the
-        MXU and scatter f32 grids measures ~2.2e-7 from this oracle); the
+        matmul and scatter f32 grids measures ~2.2e-7 from this oracle); the
         corner behaviour above is taper amplification of this floor."""
         imager = make_imager()
         rng = np.random.default_rng(71)

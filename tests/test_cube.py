@@ -353,45 +353,6 @@ def test_wave_batched_slices_matches_scan(monkeypatch, tmp_path):
     np.testing.assert_allclose(res_batch, res_scan, atol=1e-5 * scale)
 
 
-def test_wave_pallas_fft_matches_xla(monkeypatch):
-    """KTPU_FFT=pallas (the fused four-step grid<->image kernels) through
-    the FULL sharded cube wave reproduces the XLA-FFT wave to f32
-    rounding (pixels >= 256 so the fused path is eligible)."""
-    from katsdpimager_tpu.parallel import cube, make_mesh
-
-    # minor=0: CLEAN's argmax component selection amplifies f32-rounding
-    # path differences chaotically; compare the dirty/PSF stage instead.
-    cfg = cube.CubeConfig(
-        pixels=256, num_pols=1, kernel_width=8, oversample=4, w_planes=2,
-        w_slices=2, chunks_per_slice=32, chunk_size=32, rv=32, ru=32,
-        majors=1, minor=0, patch=17, psf_core=16, loop_gain=0.2)
-    mesh = make_mesh(vis_shards=1)
-    C = mesh.shape["chan"]
-
-    from katsdpimager_tpu.parallel.multichannel import (
-        make_example_batch, MultiChannelConfig)
-
-    mcfg = MultiChannelConfig(
-        pixels=cfg.pixels, num_pols=1, kernel_width=8, oversample=4,
-        w_planes=2, w_slices=2, chunks_per_slice=32, chunk_size=32,
-        rv=32, ru=32)
-    batch = make_example_batch(mcfg, C)
-
-    monkeypatch.delenv("KTPU_FFT", raising=False)
-    res_xla = np.asarray(cube.make_wave_image(mesh, cfg)(batch).residual)
-    monkeypatch.setenv("KTPU_FFT", "pallas")
-    res_pal = np.asarray(cube.make_wave_image(mesh, cfg)(batch).residual)
-    scale = np.abs(res_xla).max()
-    # Image corners amplify grid rounding by 1/taper² (the documented
-    # f32 corner behaviour, tests/test_accuracy_gate.py); compare within
-    # the anti-aliased FoV (central half) at f32 tolerance.
-    N = cfg.pixels
-    sl = (slice(None), slice(None), slice(N // 4, 3 * N // 4),
-          slice(N // 4, 3 * N // 4))
-    np.testing.assert_allclose(res_pal[sl], res_xla[sl],
-                               atol=2e-5 * scale)
-
-
 def test_cube_weights_noise_uses_weight_scale(tmp_path, monkeypatch):
     """Cube-mode weights_noise statistics apply dataset.weight_scale(),
     matching the per-channel path (ADVICE r2: katdal datasets were ~41%

@@ -172,3 +172,23 @@ class TestEndToEnd:
         assert stats["compressed_vis"] > 0
         assert stats["totals"]["I"] == pytest.approx(
             sum(s.flux_iquv[0] for s in simulate.DEFAULT_SOURCES), rel=0.5)
+
+
+def test_numpy_dataset_images_like_hdf5(tmp_path):
+    """The numpy-only dataset directory and the HDF5 file hold the same
+    data: each opens with its loader, and both image alike."""
+    from katsdpimager_tpu import loader_hdf5, loader_npy
+
+    images = {}
+    for suffix, cls in ((".vis", loader_npy.LoaderNumpy),
+                        (".h5", loader_hdf5.LoaderHDF5)):
+        path = str(tmp_path / ("sim" + suffix))
+        simulate.make_sim_dataset(path, num_antennas=12, num_times=16,
+                                  num_channels=1, max_radius=600.0)
+        ds = loader.load(path)
+        assert type(ds) is cls
+        ds.close()
+        images[suffix] = run_capture(path, [
+            path, "/tmp/ignored_%c.fits", "--pixels", "256",
+            "--kernel-width", "12", "--minor", "30"])["clean"]
+    np.testing.assert_array_equal(images[".vis"], images[".h5"])

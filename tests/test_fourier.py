@@ -91,7 +91,7 @@ class TestElementwise:
 
 
 class TestMxuFFT:
-    """Four-step MXU FFT (ops/fft.py) vs the XLA FFT / f64 numpy oracle."""
+    """Four-step matmul FFT (ops/fft.py) vs the XLA FFT / f64 numpy oracle."""
 
     def test_fft2_matches_numpy_f64(self):
         rng = np.random.default_rng(7)
@@ -106,7 +106,7 @@ class TestMxuFFT:
 
     def test_grid_to_image_same_under_both_ffts(self, monkeypatch):
         """The shift-free checkerboard path must produce the same dirty
-        image whether the transform is the XLA custom call or the MXU
+        image whether the transform is the XLA custom call or the matmul
         four-step matmul FFT."""
         rng = np.random.default_rng(3)
         pixels = 256

@@ -47,7 +47,7 @@ def test_grid_degrid_adjoint():
 
 
 def test_mxu_adjoint():
-    """Same adjointness through the MXU chunked paths."""
+    """Same adjointness through the matmul chunked paths."""
     rng = np.random.default_rng(321)
     pixels, K, oversample, w_planes, pols, n = 64, 8, 4, 2, 1, 60
     kernel = (rng.normal(size=(w_planes, oversample, K))

@@ -1,7 +1,7 @@
 """Multi-process ``jax.distributed`` rehearsal (chan axis across
-processes, as on a multi-host DCN deployment).
+processes, as on a multi-host deployment), on the CPU only.
 
-Spawns real subprocesses — the only way to exercise the multi-controller
+Spawns real CPU subprocesses — the only way to exercise the multi-controller
 path (make_array_from_process_local_data, cross-process jit dispatch,
 Gloo collectives) — and checks the result is bitwise-identical to a
 single-process run over the same per-process data.

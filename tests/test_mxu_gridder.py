@@ -1,4 +1,4 @@
-"""MXU (dense-matmul) gridder vs the scatter oracle."""
+"""Dense-matmul gridder vs the scatter oracle."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -102,8 +102,10 @@ def test_device_plan_matches_host(clustered):
                                   host.row_slot)
 
 
-@pytest.mark.parametrize("assembly", ["fft", "matmul", "tapsmm", "onehot",
-                                      "joint", "tapdict", "pallas"])
+ASSEMBLIES = ["fft", "matmul", "tapsmm", "onehot", "joint", "tapdict"]
+
+
+@pytest.mark.parametrize("assembly", ASSEMBLIES)
 def test_degrid_assembly_matches_oracle(assembly):
     rng = np.random.default_rng(29)
     kernel, uv, sub_uv, w_plane, vis, weights, wg = random_case(rng)
@@ -130,14 +132,11 @@ def test_degrid_assembly_matches_oracle(assembly):
     np.testing.assert_allclose(out, expected, rtol=2e-3, atol=2e-3)
 
 
-def test_degrid_pallas_tile_aligned_matches_oracle():
-    """The fused Pallas degrid kernel on a TILE-ALIGNED plan.
-
-    ``tile_aligned=True`` is the static promise that selects the fused
-    kernel (its window DMA passes tile indices so Mosaic can prove the
-    HBM slice offsets aligned); bbox plans (scan mode) must NOT set it
-    and take the shifted-tap fallback — covered by
-    test_degrid_assembly_matches_oracle[pallas] above."""
+@pytest.mark.parametrize("assembly", ASSEMBLIES)
+def test_degrid_tile_aligned_matches_oracle(assembly):
+    """Each assembly's degrid on a TILE-ALIGNED plan (the dense mode and
+    cube layout: anchors are multiples of ``ts``, windows ``(ts+K)^2``
+    inside the dense pad) matches the scatter oracle."""
     rng = np.random.default_rng(31)
     kernel, uv, sub_uv, w_plane, vis, weights, wg = random_case(rng)
     pixels = wg.shape[-1]
@@ -159,8 +158,7 @@ def test_degrid_pallas_tile_aligned_matches_oracle():
         jnp.asarray(plan.sub_uv), jnp.asarray(plan.w_plane),
         jnp.asarray(plan.weights), jnp.asarray(plan.vis),
         jnp.asarray(plan.anchor), jnp.asarray(plan.valid),
-        pixels=pixels, rv=ts, ru=ts, assembly="pallas",
-        tile_aligned=True)
+        pixels=pixels, rv=ts, ru=ts, assembly=assembly)
 
     expected = gridder.degrid_vis_reference(
         grid, kernel, uv, sub_uv, w_plane, weights, vis)

@@ -93,7 +93,7 @@ def test_native_merging():
 
 
 def test_engine_param_hdf5_spill(tmp_path):
-    """engine="native" composes with HDF5 spill storage (the cube
+    """engine="native" composes with disk-spill storage (the cube
     pipeline's auto configuration on an accelerator backend)."""
     ip, gp = make_params()
     rng = np.random.default_rng(11)
@@ -103,8 +103,8 @@ def test_engine_param_hdf5_spill(tmp_path):
     cj = preprocess.VisibilityCollectorMem([ip], [gp], engine="jax")
     cj.add(uvw, weights, vis, mueller_stokes=mueller)
     cj.close()
-    cn = preprocess.VisibilityCollectorHDF5(
-        str(tmp_path / "spill.h5"), [ip], [gp], engine="native")
+    cn = preprocess.VisibilityCollectorSpill(
+        str(tmp_path / "spill"), [ip], [gp], engine="native")
     cn.add(uvw, weights, vis, mueller_stokes=mueller)
     cn.close()
     assert cn.num_output == cj.num_output

@@ -113,9 +113,8 @@ class TestMxuFFTUnderMesh:
     def test_step_invariant_to_fft_backend(self, monkeypatch):
         """The sharded imaging step produces the same images whether the
         grid->image transform runs through the XLA FFT custom call or the
-        MXU four-step matmul FFT (the TPU default) — validates the
-        production FFT path under shard_map + psum before it ever touches
-        hardware.  pixels >= 256 so the four-step path actually engages
+        four-step matmul FFT (``KTPU_FFT=mxu``) — validates that path
+        under shard_map + psum.  pixels >= 256 so the four-step path actually engages
         (smaller sizes fall back to the XLA FFT)."""
         cfg = MultiChannelConfig(
             pixels=256, num_pols=1, kernel_width=8, oversample=4,

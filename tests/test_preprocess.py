@@ -190,8 +190,8 @@ class TestHDF5Backend:
         mueller = np.eye(1, dtype=np.complex64)
 
         cmem = collect(uvw, weights, vis, mueller, ip, gp)
-        ch5 = preprocess.VisibilityCollectorHDF5(
-            str(tmp_path / "vis.h5"), [ip], [gp])
+        ch5 = preprocess.VisibilityCollectorSpill(
+            str(tmp_path / "vis"), [ip], [gp])
         ch5.add(uvw, weights, vis, mueller_stokes=mueller)
         ch5.close()
 
@@ -204,7 +204,7 @@ class TestHDF5Backend:
         rh.close()
 
     def test_iter_slice_streams_blocks(self, tmp_path):
-        """Block-streamed read-back (recycled buffer) equals the one-shot
+        """Block-streamed read-back equals the one-shot
         slice; coordinate-only reads match too."""
         ip, gp = make_params()
         rng = np.random.RandomState(7)
@@ -213,8 +213,8 @@ class TestHDF5Backend:
                + 1j * rng.normal(size=(1, 300, 1))).astype(np.complex64)
         weights = np.ones((1, 300, 1), np.float32)
         mueller = np.eye(1, dtype=np.complex64)
-        ch5 = preprocess.VisibilityCollectorHDF5(
-            str(tmp_path / "vis.h5"), [ip], [gp])
+        ch5 = preprocess.VisibilityCollectorSpill(
+            str(tmp_path / "vis"), [ip], [gp])
         ch5.add(uvw, weights, vis, mueller_stokes=mueller)
         ch5.close()
         r = ch5.reader()
